@@ -1,0 +1,47 @@
+"""End to end: the PyTorch port's ``run_identify`` (device="cpu") against the
+JAX package's on one small simulated DB (the layout of test_identify_e2e).
+
+Tolerance: none.  Every output file (final_report.txt, strain_prob.txt and
+each C*/StrainVote.report, Enet fields included) must be byte-identical:
+counts are exact integers, the Pre-Scan column sums and fold Grams are
+exact, and the host code after them is the same.
+"""
+
+import pytest
+
+from strainscan_tpu.config import IdentifyConfig
+from strainscan_tpu.identify.pipeline import run_identify as run_identify_jax
+from strainscan_tpu_torch.identify.pipeline import run_identify
+
+from _torch_sim import (assert_reports_identical, e2e_fixture,  # noqa: F401
+                        one_torch_thread)
+
+
+@pytest.fixture(scope="module")
+def fixture(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_e2e")
+    return (d, *e2e_fixture(d))
+
+
+CASES = {
+    "single": ("single", IdentifyConfig(), {"B1"}),
+    "cross": ("cross", IdentifyConfig(), {"B1", "D1"}),
+    "intra_enet": ("intra", IdentifyConfig(), {"A1", "A2"}),
+    "strain_prob": ("cross", IdentifyConfig(strain_prob=True), {"B1", "D1"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reports_byte_identical_to_jax(fixture, case):
+    d, db_dir, paths = fixture
+    sample, cfg, truth = CASES[case]
+    out_jax, out_torch = str(d / f"jax_{case}"), str(d / f"torch_{case}")
+    res_jax = run_identify_jax(paths[sample], "", db_dir, out_jax, cfg)
+    res = run_identify(paths[sample], "", db_dir, out_torch, "cpu", cfg)
+    assert res is not None and res_jax is not None
+    assert sorted(res) == sorted(res_jax)
+    got = assert_reports_identical(out_torch, out_jax, truth)
+    if case == "intra_enet":
+        assert any(n.endswith("StrainVote.report") for n in got)
+    if case == "strain_prob":
+        assert "strain_prob.txt" in got
