@@ -9,16 +9,24 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    the CUDA kernels from csrc/*.cu and time the build.
 2. Kernel parity on the card, bit-exact against the plain twins:
    probe_prep_kernel on random codes with ~5 % N (B = 65,536, L in
-   {150, 256}, k in {31, 21, 16, 15}, canonical on and off), then
-   count_fp_kernel on a random table with vlen and vbytes payloads.
+   {150, 256}, k in {31, 21, 16, 15}, canonical on and off); count_fp_kernel
+   on a random table with vlen, vbytes and raw codes payloads;
+   count_exact_kernel on a random KmerTable at load 0.9 (so windows probe
+   past their home row) with vbytes and codes payloads, canonical on and
+   off.
 3. E. coli-scale count (the geometry of bench.py): a seeded 14.3 Mb random
    genome, both strands (28.6 M keys, fingerprint table 1,048,576 x 64),
    1.2 M reads of 150 bp (half reverse-complemented, 5 % random misses,
    5 % with a mid-read N) streamed through the port's count_sample.  The
    id-space counts must equal the plain PyTorch path's; one batch is also
    held against the host NumPy oracle (FpTable.lookup_host + bincount).
-   Times: end-to-end reads/s, and the kernel against its plain twin at
-   B = 65,536 x L = 150 (CUDA events).
+   Then the exact probe mode (CountPipeline(probe_mode="exact")) over the
+   same reads against the 28.6 M-key KmerTable (2^24 buckets x 96 B on the
+   card): equal to count_exact_plain over the stream and to
+   KmerTable.lookup_host + bincount on one batch; the ids where it differs
+   from the fp counts (fingerprint strays) are counted.  Times: end-to-end
+   reads/s of both modes, and each kernel against its plain twin at
+   B = 65,536 x L = 150 (CUDA events, plain-kernel-kernel-plain).
 4. End-to-end identify through the CLI entry point on a synthetic DB:
    single-strain, cross-cluster and intra-cluster (Enet) samples with
    ``identify`` and then ``batch-identify`` on the GPU, once more in a
@@ -26,10 +34,27 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    ``--device cpu``.  Every report must be byte-identical between GPU and
    CPU, the truth strains must be found, and the kernels' launch counters
    (reset just before the GPU runs) must show the runs went through them.
+5. Scale-out: a mesh over every visible GPU, or on a card that is alone a
+   2 x 2 mesh whose four positions are all that card.  The sharded exact
+   count (sharded_count) and the sharded fp pipeline (count_sample with
+   shard_min_kmers=1) over phase 3's reads must equal phase 3's
+   single-device counts; phase 4's samples identified on the mesh with
+   shard_min_kmers=1, shard_min_l2_rows=1 must give reports byte-identical
+   to phase 4's GPU reports, with count_fp_kernel launched once per mesh
+   position per batch; and a 2-process gloo run of ``batch-identify`` on
+   the same card (torchrun's variables set by hand) must give
+   byte-identical reports too.
+
+Each path's launch counters are set to 0 just before it and read just
+after: the main path (phase 4's GPU identify) for count_fp_kernel, the
+exact-mode count of phase 3 for count_exact_kernel.  probe_prep_kernel is
+the standalone parity seam of the Pallas probe_prep, on no path (its hash
+runs fused inside the count kernels), so its main-path count is 0 and the
+kernels line also gives its phase-2 launches.
 
 Reduced for time: phase 4's DB is 40 families x up to 3 variants x 100 kb
-(80 genomes), not the 823 clusters of the reference's E. coli DB; phase 3
-keeps the count at the full 28.6 M-key table.
+(80 genomes), not the 823 clusters of the reference's E. coli DB; phases 3
+and 5 keep the count at the full 28.6 M-key table.
 
 Prints progress with the card's name and power limit beside every number,
 then the card line, a JSON line of the kernels, and as the last line
@@ -43,6 +68,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -67,6 +93,7 @@ COUNT_REPS = 3
 MAXLEN = 256   # IdentifyConfig.max_read_len: identify pads batches to it
 # phase 4
 FAMILIES, VARIANTS, GLEN = 40, 3, 100_000
+GPU = "cuda"   # the --device of the GPU runs
 
 
 
@@ -173,16 +200,23 @@ def phase_env(tag: str) -> None:
 
 
 def phase_parity(dev, tag: str) -> dict:
-    """Kernels vs plain twins on the card; max |kernel - plain| per count form."""
+    """Kernels vs plain twins on the card: {kernel: (max |kernel - plain|,
+    launches)}."""
     import torch
 
-    from strainscan_tpu_torch.index.hashtable import fp_table_to_device
+    from strainscan_tpu_torch.index.hashtable import (KmerTable,
+                                                      fp_table_to_device,
+                                                      kmer_table_to_device)
     from strainscan_tpu_torch.ops import probe
     from strainscan_tpu_torch.ops.count import CountPipeline
 
+    def err(a, b) -> int:
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
     rng = np.random.default_rng(11)
+    errs = {name: 0 for name in probe.LAUNCHES}
+    probe.reset_launches()
     n_probe = 0
-    launched = probe.LAUNCHES["probe_prep_kernel"]
     for length in PARITY_LENGTHS:
         codes = rng.integers(0, 4, size=(BATCH, length)).astype(np.uint8)
         codes[rng.random(codes.shape) < 0.05] = 4
@@ -192,46 +226,83 @@ def phase_parity(dev, tag: str) -> dict:
                 kw = dict(k=k, n_buckets=1 << 20, seed=7, canonical=canonical)
                 b, f = probe.probe_prep(cd, **kw)
                 pb, pf = probe.probe_prep_plain(cd, **kw)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize()
+                sync(dev)
                 check(torch.equal(b, pb) and torch.equal(f, pf),
                       f"probe_prep L={length} k={k} canonical={canonical}")
+                errs["probe_prep_kernel"] = max(
+                    errs["probe_prep_kernel"], err(b, pb), err(f, pf))
                 n_probe += 1
-    launched = probe.LAUNCHES["probe_prep_kernel"] - launched
-    check(launched == (n_probe if dev.type == "cuda" else 0),
-          f"probe_prep_kernel launched {launched} times for {n_probe} cases")
-    log(f"[parity] probe_prep_kernel bit-exact in {n_probe} cases, "
-        f"{launched} launches "
+    log(f"[parity] probe_prep_kernel bit-exact in {n_probe} cases "
         f"(B={BATCH}, L in {PARITY_LENGTHS}, k in {PARITY_KS}, canonical "
         f"on/off) [{tag}]")
 
     genome = rng.integers(0, 4, size=400_000).astype(np.uint8)
-    fpt = fp_table(genome_keys(genome, dev))
+    keys = genome_keys(genome, dev)
+    fpt = fp_table(keys)
     table = fp_table_to_device(fpt, dev)
-    pipe = CountPipeline(fpt, dev)
     reads = np.full((BATCH, 156), 4, np.uint8)
     reads[:, :READ_LEN] = sample_reads(rng, genome, BATCH)
     reads[: BATCH // 8] = rng.integers(0, 4, size=(BATCH // 8, 156))
-    forms = {}
-    for name, codes in (("vlen", reads), ("vbytes", reads.copy())):
-        if name == "vbytes":
-            codes[::9, 60] = 4
-        (payload,) = pipe.prepare_batch(codes)
+    dirty = reads.copy()
+    dirty[::9, 60] = 4
+    for name, codes, packed in (("vlen", reads, True),
+                                ("vbytes", dirty, True),
+                                ("codes", dirty, False)):
+        (payload,) = CountPipeline(fpt, dev, packed_transfer=packed) \
+            .prepare_batch(codes)
         check(payload[0] == name, f"payload form {payload[0]} != {name}")
-        words, valid = payload[1].to(dev), payload[2].to(dev)
+        words = payload[1].to(dev)
+        valid = {} if payload[2] is None else {name: payload[2].to(dev)}
         c1 = torch.zeros(fpt.n_slots + 1, dtype=torch.int32, device=dev)
         c2 = c1.clone()
-        kw = dict(length=156, k=K, seed=fpt.seed, **{name: valid})
+        kw = dict(length=156, k=K, seed=fpt.seed, **valid)
         probe.count_fp(c1, words, table.fp, **kw)
         probe.count_fp_plain(c2, words, table.fp, **kw)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        sync(dev)
         check(torch.equal(c1, c2), f"count_fp {name} != plain")
-        forms[name] = int((c1 - c2).abs().max())
+        errs["count_fp_kernel"] = max(errs["count_fp_kernel"], err(c1, c2))
         log(f"[parity] count_fp_kernel {name}: bit-exact, "
             f"{int(c1[:-1].sum())} hits, {int(c1[-1])} trash "
             f"(table {fpt.n_keys} keys) [{tag}]")
-    return forms
+
+    kt = KmerTable.build(keys, k=K, load_factor=0.9)
+    ktab = kmer_table_to_device(kt, dev)
+    check(kt.max_probe > 1, "the load-0.9 table must overflow buckets")
+    for name, codes, packed in (("vbytes", dirty, True),
+                                ("codes", dirty, False)):
+        (payload,) = CountPipeline(kt, dev, packed_transfer=packed,
+                                   probe_mode="exact").prepare_batch(codes)
+        check(payload[0] == name, f"payload form {payload[0]} != {name}")
+        words = payload[1].to(dev)
+        valid = {} if payload[2] is None else {name: payload[2].to(dev)}
+        for canonical in (False, True):
+            c1 = torch.zeros(kt.n_keys + 1, dtype=torch.int32, device=dev)
+            c2 = c1.clone()
+            kw = dict(length=156, k=K, max_probe=kt.max_probe,
+                      canonical=canonical, **valid)
+            probe.count_exact(c1, words, ktab.table, **kw)
+            probe.count_exact_plain(c2, words, ktab.table, **kw)
+            sync(dev)
+            check(torch.equal(c1, c2),
+                  f"count_exact {name} canonical={canonical} != plain")
+            errs["count_exact_kernel"] = max(errs["count_exact_kernel"],
+                                             err(c1, c2))
+            log(f"[parity] count_exact_kernel {name} canonical={canonical}: "
+                f"bit-exact, {int(c1[:-1].sum())} hits, {int(c1[-1])} trash "
+                f"(table {kt.n_keys} keys, max_probe {kt.max_probe}) [{tag}]")
+    launches = dict(probe.LAUNCHES)
+    check(launches == {"probe_prep_kernel": n_probe, "count_fp_kernel": 3,
+                       "count_exact_kernel": 4},
+          f"parity launches {launches}")
+    log(f"[parity] kernel launches {launches}")
+    return {name: (errs[name], launches[name]) for name in errs}
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def fp_table(keys: np.ndarray):
@@ -242,7 +313,8 @@ def fp_table(keys: np.ndarray):
 
 
 def phase_count(dev, tag: str) -> dict:
-    """E. coli-scale count; the kernel and plain timings in ms."""
+    """E. coli-scale count in fp mode; returns the fixture (keys, fpt, fq,
+    reads), the id-space counts and the kernel and plain timings in ms."""
     import torch
 
     from strainscan_tpu_torch.identify.count import (count_sample,
@@ -350,8 +422,107 @@ def phase_count(dev, tag: str) -> dict:
         f"[{tag}]")
     log(f"[count] probe_prep_kernel {ms['prep']} ms vs plain "
         f"{ms['prep_plain']} ms per batch of {BATCH} x {READ_LEN} [{tag}]")
-    os.remove(fq)
-    return ms
+    return dict(keys=keys, fpt=fpt, fq=fq, reads=reads, ids=ids, ms=ms)
+
+
+def phase_exact(dev, tag: str, ctx: dict) -> dict:
+    """The exact probe mode over phase 3's reads: its id-space counts, the
+    exact path's launches and the kernel and plain timings in ms."""
+    import torch
+
+    from strainscan_tpu_torch.identify.count import iter_payloads
+    from strainscan_tpu_torch.index.hashtable import KmerTable
+    from strainscan_tpu_torch.ops import probe
+    from strainscan_tpu_torch.ops.count import CountPipeline
+
+    keys, fq, reads = ctx["keys"], ctx["fq"], ctx["reads"]
+    t0 = time.perf_counter()
+    kt = KmerTable.build(keys, k=K)
+    log(f"[exact] table: {kt.n_keys} keys, {kt.n_buckets} buckets x 96 B = "
+        f"{kt.n_buckets * 96 / 2**30} GiB, max_probe {kt.max_probe}, built "
+        f"in {time.perf_counter() - t0} s (host)")
+
+    probe.reset_launches()
+    ids = None
+    for rep in range(COUNT_REPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        pipe = CountPipeline(kt, dev, probe_mode="exact")
+        for payloads in iter_payloads(pipe, fq):
+            pipe.add_prepared(payloads)
+        got = pipe.finish()
+        dt = time.perf_counter() - t0
+        check(ids is None or np.array_equal(got, ids), "repeat count differs")
+        ids = got
+        log(f"[exact] rep {rep}: {dt} s, {N_READS / dt} reads/s end to end "
+            f"({'cold: includes the table upload' if rep == 0 else 'warm'}) "
+            f"[{tag}]")
+    launches = probe.LAUNCHES["count_exact_kernel"]
+    check(launches > 0 and probe.LAUNCHES["count_fp_kernel"] == 0,
+          f"exact path launches {dict(probe.LAUNCHES)}")
+    log(f"[exact] exact-path kernel launches {dict(probe.LAUNCHES)}")
+
+    # the plain PyTorch path on the same payloads, on the same device
+    pipe = CountPipeline(kt, dev, probe_mode="exact")
+    table = pipe.table
+    plain = torch.zeros_like(pipe.counts)
+    forms = set()
+    for payloads in iter_payloads(pipe, fq):
+        for form, a, b in payloads:
+            forms.add(form)
+            kw = dict(length=MAXLEN, k=K, max_probe=kt.max_probe,
+                      **{form: b.to(dev)})
+            probe.count_exact(pipe.counts, a.to(dev), table.table, **kw)
+            probe.count_exact_plain(plain, a.to(dev), table.table, **kw)
+    check(forms == {"vbytes"}, f"exact payload forms seen: {forms}")
+    check(torch.equal(pipe.counts, plain), "exact counts != plain path")
+    check(np.array_equal(ids, plain[:-1].cpu().numpy()),
+          "exact id-space counts != plain path")
+    strays = np.nonzero(ids != ctx["ids"])[0]
+    log(f"[exact] id-space counts equal the plain path's over all {N_READS} "
+        f"reads ({int(ids.sum())} hits); ids whose fp-mode count differs "
+        f"(fingerprint strays): {strays.size}, fp minus exact "
+        f"{int(ctx['ids'][strays].sum()) - int(ids[strays].sum())} counts")
+
+    # one batch against the host NumPy oracle
+    batch = reads[-BATCH:]
+    one = CountPipeline(kt, dev, probe_mode="exact")
+    one.add_batch(batch)
+    got = one.counts.cpu().numpy()
+    wkeys, valid = host_window_keys(batch)
+    q = wkeys[valid]
+    hits = np.concatenate([kt.lookup_host(q[i:i + 1_000_000])
+                           for i in range(0, q.size, 1_000_000)])
+    want = np.bincount(hits[hits >= 0], minlength=kt.n_keys)
+    check(np.array_equal(got[:-1], want), "exact counts != host oracle")
+    check(int(got[-1]) == wkeys.size - int((hits >= 0).sum()),
+          "exact trash != non-hit windows")
+    log(f"[exact] one batch equals KmerTable.lookup_host + bincount "
+        f"({wkeys.size} windows, {int((hits >= 0).sum())} hits)")
+
+    # kernel against the plain twin at B = 65,536 x L = 150 (vbytes, the
+    # form the exact mode ships)
+    (payload,) = CountPipeline(kt, dev, probe_mode="exact").prepare_batch(
+        reads[:BATCH])
+    words, valid_t = payload[1].to(dev), payload[2].to(dev)
+    kw = dict(length=READ_LEN, k=K, max_probe=kt.max_probe,
+              **{payload[0]: valid_t})
+    scratch = torch.zeros_like(pipe.counts)
+    ms = {"count_exact": [], "count_exact_plain": []}
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "kernel":
+            ms["count_exact"].append(cuda_ms(lambda: probe.count_exact(
+                scratch, words, table.table, **kw), 20))
+        else:
+            ms["count_exact_plain"].append(cuda_ms(
+                lambda: probe.count_exact_plain(scratch, words, table.table,
+                                                **kw), 3))
+    windows = BATCH * (READ_LEN - K + 1)
+    log(f"[exact] count_exact_kernel {ms['count_exact']} ms vs plain "
+        f"{ms['count_exact_plain']} ms per batch of {BATCH} x {READ_LEN} "
+        f"({payload[0]}); kernel {windows / (min(ms['count_exact']) / 1e3)} "
+        f"windows/s [{tag}]")
+    return dict(ids=ids, launches=launches, ms=ms)
 
 
 def synth_db_inputs(rng):
@@ -397,8 +568,9 @@ def tree_bytes(out_dir: str) -> dict:
     return files
 
 
-def phase_identify(tag: str) -> dict:
-    """identify / batch-identify on GPU and CPU; main-path kernel launches."""
+def phase_identify(tag: str):
+    """identify / batch-identify on GPU and CPU; main-path kernel launches
+    and the fixture (DB, samples, report directory)."""
     from strainscan_tpu_torch import cli
     from strainscan_tpu_torch.ops import probe
 
@@ -430,23 +602,23 @@ def phase_identify(tag: str) -> dict:
         check(rc == 0, f"batch-identify on {device}")
 
     probe.reset_launches()
-    run("cuda")
+    run(GPU)
     launches = dict(probe.LAUNCHES)
     check(launches["count_fp_kernel"] > 0, f"main path launches {launches}")
     t = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "strainscan_tpu_torch.cli", "identify", "-i",
          samples["single"], "-d", db, "-o",
-         os.path.join(out, "process", "single"), "--device", "cuda"],
+         os.path.join(out, "process", "single"), "--device", GPU],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     secs["process/single"] = time.perf_counter() - t
     check(proc.returncode == 0, f"python -m strainscan_tpu_torch.cli "
           f"identify failed:\n{proc.stderr[-4000:]}")
     run("cpu")
 
-    pairs = [(os.path.join(out, "cuda", n), os.path.join(out, "cpu", n))
+    pairs = [(os.path.join(out, GPU, n), os.path.join(out, "cpu", n))
              for n in names]
-    pairs += [(os.path.join(out, "cuda", "batch", n),
+    pairs += [(os.path.join(out, GPU, "batch", n),
                os.path.join(out, "cpu", "batch", n)) for n in names]
     pairs.append((os.path.join(out, "process", "single"),
                   os.path.join(out, "cpu", "single")))
@@ -460,23 +632,163 @@ def phase_identify(tag: str) -> dict:
         n_files += len(a)
     found = {}
     for n in names:
-        with open(os.path.join(out, "cuda", n, "final_report.txt")) as fh:
+        with open(os.path.join(out, GPU, n, "final_report.txt")) as fh:
             rows = fh.read().splitlines()[1:]
         found[n] = sorted({r.split("\t")[1] for r in rows})
         check(truth[n] <= set(found[n]),
               f"{n}: truth {sorted(truth[n])} not in {found[n]}")
-    enet = os.path.join(out, "cuda", "intra")
+    enet = os.path.join(out, GPU, "intra")
     check(any(f.endswith("StrainVote.report") for f in tree_bytes(enet)),
           "intra-cluster sample did not reach the L2 vote")
     log(f"[identify] {n_files} report files byte-identical between GPU and "
         f"CPU runs; found {found}")
-    warm = secs["cuda/batch"] / len(names)
+    warm = secs[GPU + "/batch"] / len(names)
     log(f"[identify] GPU s/sample: cold (first in process) "
-        f"{secs['cuda/' + names[0]]}, warm (batch-identify) {warm}, "
+        f"{secs[GPU + '/' + names[0]]}, warm (batch-identify) {warm}, "
         f"fresh process {secs['process/single']}; CPU warm "
         f"{secs['cpu/batch'] / len(names)} [{tag}]")
     log(f"[identify] main-path kernel launches {launches}")
-    return launches
+    return launches, dict(db=db, samples=samples, out=out)
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def same_reports(got_dir: str, want_dir: str, what: str) -> int:
+    """Check two report trees byte-identical; return the file count."""
+    a, b = tree_bytes(got_dir), tree_bytes(want_dir)
+    check(sorted(a) == sorted(b) and "final_report.txt" in a,
+          f"{what}: report sets differ ({sorted(a)} vs {sorted(b)})")
+    for f in a:
+        check(a[f] == b[f], f"{what}: {f} differs from the single-device "
+              f"GPU run")
+    return len(a)
+
+
+def phase_scale(dev, tag: str, count: dict, exact: dict,
+                ident: dict) -> None:
+    """Sharded counts and identify on a mesh, and a 2-process run."""
+    import dataclasses
+
+    import torch
+
+    from strainscan_tpu_torch.identify import count as icount
+    from strainscan_tpu_torch.identify.count import IdentifyConfig
+    from strainscan_tpu_torch.identify.pipeline import run_identify
+    from strainscan_tpu_torch.ops import probe
+    from strainscan_tpu_torch.parallel import (ShardedTable, make_mesh,
+                                               sharded_count)
+
+    n_gpu = torch.cuda.device_count()
+    mesh = make_mesh() if n_gpu > 1 else make_mesh([dev] * 4)
+    n_dev = len({str(d) for d in mesh.devices})
+    log(f"[scale] {mesh}: {mesh.shape['data']} x {mesh.shape['index']} "
+        f"(data x index) positions on {n_dev} distinct device(s)"
+        + (" -- one card: all four positions are cuda:0" if n_gpu == 1
+           else ""))
+    keys, reads = count["keys"], count["reads"]
+
+    t0 = time.perf_counter()
+    st = ShardedTable.build(keys, k=K, n_shards=mesh.shape["index"])
+    log(f"[scale] ShardedTable of {keys.size} keys in "
+        f"{mesh.shape['index']} shards ({st.n_buckets} buckets each, "
+        f"max_probe {st.max_probe}) built in {time.perf_counter() - t0} s "
+        f"(host)")
+    probe.reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    got = sharded_count(mesh, st, reads)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    check(probe.LAUNCHES["count_exact_kernel"] == mesh.size,
+          f"sharded_count launches {dict(probe.LAUNCHES)}")
+    check(np.array_equal(got[:keys.size].cpu().numpy(), exact["ids"]),
+          "sharded_count != the single-device exact counts")
+    log(f"[scale] sharded_count (exact, one count_exact_kernel per "
+        f"position) equals the single-device exact counts over {N_READS} "
+        f"reads; {dt} s including the shard and read uploads [{tag}]")
+
+    cfg = dataclasses.replace(IdentifyConfig(), shard_min_kmers=1)
+    icount._SHARDED_CACHE.clear()
+    for rep in range(2):
+        probe.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        ids = icount.count_sample(count["fpt"], count["fq"], mesh, cfg,
+                                  keys=keys)
+        dt = time.perf_counter() - t0
+        launched = probe.LAUNCHES["count_fp_kernel"]
+        check(launched > 0 and launched % mesh.size == 0,
+              f"sharded pipeline launches {dict(probe.LAUNCHES)}")
+        check(np.array_equal(ids, count["ids"]),
+              "sharded count_sample != the single-device fp counts")
+        log(f"[scale] sharded count_sample rep {rep}: equal to the "
+            f"single-device counts, {dt} s, {N_READS / dt} reads/s end to "
+            f"end ({'cold: includes the sharded fp build and uploads' if rep == 0 else 'warm: cached pipeline'}), "
+            f"{launched} count_fp_kernel launches [{tag}]")
+    icount._SHARDED_CACHE.clear()
+
+    db, samples, out = ident["db"], ident["samples"], ident["out"]
+    names = sorted(samples)
+    cfg = dataclasses.replace(IdentifyConfig(), shard_min_kmers=1,
+                              shard_min_l2_rows=1)
+    probe.reset_launches()
+    secs = []
+    for name in names:
+        t0 = time.perf_counter()
+        check(run_identify(samples[name], "", db,
+                           os.path.join(out, "mesh", name), mesh, cfg)
+              is not None, f"mesh identify {name}")
+        secs.append(time.perf_counter() - t0)
+    launched = probe.LAUNCHES["count_fp_kernel"]
+    check(launched > 0 and launched % mesh.size == 0
+          and all(p.mesh is mesh for _, _, p in icount._SHARDED_CACHE),
+          f"mesh identify did not run the sharded pipeline: "
+          f"{dict(probe.LAUNCHES)}")
+    n_files = sum(same_reports(os.path.join(out, "mesh", n),
+                               os.path.join(out, GPU, n), f"mesh {n}")
+                  for n in names)
+    log(f"[scale] sharded identify (shard_min_kmers=1, shard_min_l2_rows=1) "
+        f"of {names}: {n_files} report files byte-identical to the "
+        f"single-device GPU run; {launched} count_fp_kernel launches; "
+        f"s/sample {secs} [{tag}]")
+    icount._SHARDED_CACHE.clear()
+
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE="2", RANK=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "strainscan_tpu_torch.cli",
+                 "batch-identify", "-i", *(samples[n] for n in names), "-d",
+                 db, "-o", os.path.join(out, f"rank{rank}"), "--device",
+                 GPU], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        t0 = time.perf_counter()
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+        dt = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"2-process batch-identify rank {rank} "
+              f"failed:\n{err[-4000:]}")
+        check("multi-host run: process %d/2" % rank in err,
+              f"rank {rank} did not join the process group")
+    n_files = sum(same_reports(os.path.join(out, f"rank{rank}", n),
+                               os.path.join(out, GPU, "batch", n),
+                               f"rank {rank} {n}")
+                  for rank in range(2) for n in names)
+    log(f"[scale] 2-process gloo batch-identify of {names} on one card: "
+        f"{n_files} report files byte-identical to the single-device GPU "
+        f"run; {dt} s for both processes, start-up included [{tag}]")
 
 
 def main() -> int:
@@ -503,17 +815,36 @@ def main() -> int:
 
     phase_env(tag)
     parity = phase_parity(dev, tag)
-    ms = phase_count(dev, tag)
-    launches = phase_identify(tag)
+    count = phase_count(dev, tag)
+    exact = phase_exact(dev, tag, count)
+    launches, ident = phase_identify(tag)
+    phase_scale(dev, tag, count, exact, ident)
     shutil.rmtree(FIXTURE, ignore_errors=True)
 
+    ms = {**count["ms"], **exact["ms"]}
+    src = "strainscan_tpu_torch/csrc/"
     kernels = [{
+        "name": "probe_prep_kernel", "route": "cuda",
+        "source": src + "probe_count.cu",
+        "replaces": "strainscan_tpu/ops/pallas_probe.py:168",
+        "launches": launches["probe_prep_kernel"],
+        "parity_launches": parity["probe_prep_kernel"][1],
+        "max_abs_err": parity["probe_prep_kernel"][0],
+        "ms": min(ms["prep"]), "plain_ms": min(ms["prep_plain"]),
+    }, {
         "name": "count_fp_kernel", "route": "cuda",
-        "source": "strainscan_tpu_torch/csrc/probe_count.cu",
+        "source": src + "probe_count.cu",
         "replaces": "strainscan_tpu/ops/pallas_probe.py:168",
         "launches": launches["count_fp_kernel"],
-        "max_abs_err": max(parity.values()),
+        "max_abs_err": parity["count_fp_kernel"][0],
         "ms": min(ms["count_fp"]), "plain_ms": min(ms["count_plain"]),
+    }, {
+        "name": "count_exact_kernel", "route": "cuda",
+        "source": src + "count_exact.cu",
+        "replaces": "strainscan_tpu/ops/count.py:32",
+        "launches": exact["launches"],
+        "max_abs_err": parity["count_exact_kernel"][0],
+        "ms": min(ms["count_exact"]), "plain_ms": min(ms["count_exact_plain"]),
     }]
     print(tag)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,16 @@
-"""StrainScan command line on PyTorch (one device per process).
+"""StrainScan command line on PyTorch.
 
 Subcommand flags mirror ``strainscan_tpu.cli`` (and through it the
 reference CLIs), plus ``--device {cuda,cpu}`` for ``identify`` and
-``batch-identify``.  ``build``, ``convert`` and ``subsample`` are host-only
-and delegate to the shared host code of ``strainscan_tpu``.
+``batch-identify``: ``cuda`` counts on every visible GPU (one GPU: the
+single-device path; several: the sharded path for large tables).
+``build``, ``convert`` and ``subsample`` are host-only and delegate to the
+shared host code of ``strainscan_tpu``.
+
+Multi-host: under ``torchrun`` (``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK`` set) every process joins a gloo group, counts its
+share of the read batches, and the counts are summed before the CST search
+(``parallel/distributed.py``).
 
 Usage:
     python -m strainscan_tpu_torch.cli build -i genomes/ -o DB
@@ -55,8 +62,9 @@ def _add_build(sub):
 
 def _add_device(p):
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="device of the count and L2 kernels (default cuda; "
-                        "cuda without a usable GPU is an error)")
+                   help="device of the count and L2 kernels (default cuda: "
+                        "every visible GPU; cuda without a usable GPU is an "
+                        "error)")
 
 
 def _add_identify(sub):
@@ -146,6 +154,13 @@ def main(argv=None) -> int:
     _add_subsample(sub)
     args = parser.parse_args(argv)
 
+    # multi-host bootstrap (env-gated, a no-op without MASTER_ADDR)
+    from strainscan_tpu_torch.parallel import distributed as dist
+
+    if dist.maybe_initialize():
+        idx, n = dist.process_info()
+        logging.info("multi-host run: process %d/%d", idx, n)
+
     if args.cmd == "convert":
         from strainscan_tpu.build import convert
 
@@ -192,12 +207,12 @@ def main(argv=None) -> int:
 
     if args.cmd == "batch-identify":
         from strainscan_tpu.io.fastx import genome_prefix
-        from strainscan_tpu_torch.device import resolve_device
         from strainscan_tpu_torch.identify.pipeline import run_identify
+        from strainscan_tpu_torch.parallel.sharded import resolve_mesh
 
         # one process for the whole batch: the DB caches and the
         # device-resident tables stay warm between samples
-        device = resolve_device(args.device)
+        device = resolve_mesh(args.device)
         cfg = _identify_cfg(args)
         n_found = 0
         seen: dict = {}

@@ -12,10 +12,14 @@
 //   kernel's plain twin.
 // * count_fp_kernel: the same window hash fused with what XLA did around the
 //   Pallas kernel in strainscan_tpu/ops/count.py::_count_core_fp: the device
-//   unpack of the 2-bit words (kmer/device.py::unpack_codes[_vlen]), the
+//   unpack of the 2-bit words (kmer/device.py::unpack_codes[_vlen]; or raw
+//   uint8 codes, count_batch_fp with packed_transfer=False), the
 //   fingerprint-row probe (pallas_probe.py::lookup_fp_from_prep) and the
 //   scatter-add into slot-space counts.  Windows that do not hit (invalid or
 //   miss) are added to the trash slot counts[n_slots], as the JAX scatter does.
+//
+// The exact-mode count (count_exact_kernel) is in count_exact.cu; the
+// helpers both files share are in kmer_window.cuh.
 //
 // What bounds it on the card
 // --------------------------
@@ -28,7 +32,8 @@
 // What the design does about it
 // -----------------------------
 // * A block stages kRowsPerBlock code rows in shared memory once (unpacking
-//   the words there), so the k reads per window hit shared memory.
+//   the words there, or copying raw codes), so the k reads per window hit
+//   shared memory.
 // * Each lane hashes one window; the warp then probes its 32 windows one at a
 //   time, cooperatively: lane i reads slots i and 32 + i of the row, so the
 //   256 B read is two coalesced 128 B transactions and the second is skipped
@@ -45,55 +50,18 @@
 // Every entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
-#include <cstdint>
-
-#include <cuda_runtime.h>
+#include "kmer_window.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 4;
-constexpr unsigned kFullMask = 0xFFFFFFFFu;
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-// Reverse complement of a k-mer packed 2 bits/base in the low 2k bits.
-__device__ __forceinline__ uint64_t revcomp64(uint64_t x, int k) {
-  x = ~x;
-  x = ((x >> 2) & 0x3333333333333333ull) | ((x & 0x3333333333333333ull) << 2);
-  x = ((x >> 4) & 0x0F0F0F0F0F0F0F0Full) | ((x & 0x0F0F0F0F0F0F0F0Full) << 4);
-  x = ((x >> 8) & 0x00FF00FF00FF00FFull) | ((x & 0x00FF00FF00FF00FFull) << 8);
-  x = ((x >> 16) & 0x0000FFFF0000FFFFull) |
-      ((x & 0x0000FFFF0000FFFFull) << 16);
-  x = (x >> 32) | (x << 32);
-  return x >> (64 - 2 * k);
-}
-
 // Bucket (-1 if the window holds a code >= 4) and fingerprint of the window
-// that starts at row[j].  Bit-identical to pallas_probe._probe_prep_kernel:
-// a code c contributes c & 3 to the packed value, c >> 2 to the bad flag.
+// that starts at row[j].  Bit-identical to pallas_probe._probe_prep_kernel.
 __device__ __forceinline__ int32_t window_hash(const uint8_t* row, int j,
                                                int k, bool canonical,
                                                uint32_t nb_mask, uint32_t seed,
                                                uint32_t* fp) {
-  uint64_t key = 0;
-  uint32_t bad = 0;
-  for (int i = 0; i < k; ++i) {
-    const uint32_t c = row[j + i];
-    bad |= c >> 2;
-    key = (key << 2) | (c & 3u);
-  }
-  if (canonical) {
-    const uint64_t rc = revcomp64(key, k);
-    key = rc < key ? rc : key;
-  }
+  uint32_t bad;
+  const uint64_t key = window_key(row, j, k, canonical, &bad);
   const uint32_t hi = static_cast<uint32_t>(key >> 32);
   const uint32_t lo = static_cast<uint32_t>(key);
   *fp = fmix32(fmix32(lo ^ 0x85EBCA6Bu) ^ hi);
@@ -109,11 +77,8 @@ probe_prep_kernel(const uint8_t* __restrict__ codes, int64_t n_rows, int L,
                   uint32_t* __restrict__ fp_out) {
   extern __shared__ uint8_t s_codes[];  // [kRowsPerBlock, L]
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock;
-  const int rows = static_cast<int>(
-      n_rows - row0 < kRowsPerBlock ? n_rows - row0 : kRowsPerBlock);
-  const uint8_t* src = codes + row0 * L;
-  for (int i = threadIdx.x; i < rows * L; i += blockDim.x) s_codes[i] = src[i];
-  __syncthreads();
+  const int rows = rows_in_block(n_rows, row0);
+  stage_rows(s_codes, codes, nullptr, nullptr, nullptr, row0, rows, 0, 0, L);
   for (int w = threadIdx.x; w < rows * M; w += blockDim.x) {
     const int r = w / M;
     const int j = w - r * M;
@@ -127,7 +92,8 @@ probe_prep_kernel(const uint8_t* __restrict__ codes, int64_t n_rows, int L,
 }
 
 __global__ void __launch_bounds__(kThreads)
-count_fp_kernel(const uint32_t* __restrict__ words,
+count_fp_kernel(const uint8_t* __restrict__ codes,
+                const uint32_t* __restrict__ words,
                 const uint16_t* __restrict__ vlen,
                 const uint8_t* __restrict__ vbytes, int64_t n_rows, int W,
                 int VB, int L, int M, int k, bool canonical,
@@ -136,21 +102,8 @@ count_fp_kernel(const uint32_t* __restrict__ words,
                 int64_t trash) {
   extern __shared__ uint8_t s_codes[];  // [kRowsPerBlock, L]
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock;
-  const int rows = static_cast<int>(
-      n_rows - row0 < kRowsPerBlock ? n_rows - row0 : kRowsPerBlock);
-  // unpack: base p of a row sits in bits 2(p%16).. of word p/16; a position
-  // past vlen, or with its validity bit clear, becomes code 4
-  for (int i = threadIdx.x; i < rows * L; i += blockDim.x) {
-    const int r = i / L;
-    const int p = i - r * L;
-    const int64_t row = row0 + r;
-    const uint32_t c = (words[row * W + (p >> 4)] >> (2 * (p & 15))) & 3u;
-    const bool ok = vlen != nullptr
-                        ? p < static_cast<int>(vlen[row])
-                        : ((vbytes[row * VB + (p >> 3)] >> (p & 7)) & 1u) != 0;
-    s_codes[i] = ok ? static_cast<uint8_t>(c) : static_cast<uint8_t>(4);
-  }
-  __syncthreads();
+  const int rows = rows_in_block(n_rows, row0);
+  stage_rows(s_codes, codes, words, vlen, vbytes, row0, rows, W, VB, L);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -189,10 +142,6 @@ count_fp_kernel(const uint32_t* __restrict__ words,
   }
 }
 
-int grid_for(int64_t n_rows) {
-  return static_cast<int>((n_rows + kRowsPerBlock - 1) / kRowsPerBlock);
-}
-
 }  // namespace
 
 extern "C" {
@@ -215,11 +164,13 @@ int probe_prep_launch(int device, const void* codes, long long n_rows, int L,
   return static_cast<int>(cudaGetLastError());
 }
 
-// words uint32 [n_rows, W] plus exactly one validity form: vlen uint16
-// [n_rows] (valid prefix lengths) or vbytes uint8 [n_rows, VB] (LSB-first
-// bitmask).  Adds into counts int32 [n_buckets * bucket + 1].
-int count_fp_launch(int device, const void* words, const void* vlen,
-                    const void* vbytes, long long n_rows, int W, int VB, int L,
+// Exactly one payload form: raw codes uint8 [n_rows, L], or words uint32
+// [n_rows, W] with vlen uint16 [n_rows] (valid prefix lengths) or vbytes
+// uint8 [n_rows, VB] (LSB-first bitmask).  Adds into counts int32
+// [n_buckets * bucket + 1].
+int count_fp_launch(int device, const void* codes, const void* words,
+                    const void* vlen, const void* vbytes, long long n_rows,
+                    int W, int VB, int L,
                     int k, int canonical, const void* fp_table,
                     unsigned n_buckets, int bucket, unsigned seed,
                     void* counts, void* stream) {
@@ -229,7 +180,7 @@ int count_fp_launch(int device, const void* words, const void* vlen,
   if (n_rows > 0 && M > 0) {
     count_fp_kernel<<<grid_for(n_rows), kThreads, kRowsPerBlock * L,
                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(words),
+        static_cast<const uint8_t*>(codes), static_cast<const uint32_t*>(words),
         static_cast<const uint16_t*>(vlen),
         static_cast<const uint8_t*>(vbytes), n_rows, W, VB, L, M, k,
         canonical != 0, static_cast<const uint32_t*>(fp_table),

@@ -1,5 +1,5 @@
-"""End-to-end identification on one device (port of
-``strainscan_tpu/identify/pipeline.py``, the reference StrainScan.py:113-271):
+"""End-to-end identification (port of ``strainscan_tpu/identify/pipeline.py``,
+the reference StrainScan.py:113-271):
 
     count sample once -> (optional) low-depth probability report ->
     CST search with the cutoff ladder -> (optional) plasmid re-build ->
@@ -7,7 +7,9 @@
 
 The DB loads with the shared host loader; its fingerprint table is uploaded
 to the device once and cached on the table object, so ``batch-identify``
-keeps it resident between samples.
+keeps it resident between samples.  On a mesh of several devices the
+count shards its table over the mesh (``cfg.shard_min_kmers``) and the L2
+statistics split their rows over it (``cfg.shard_min_l2_rows``).
 """
 
 from __future__ import annotations
@@ -16,17 +18,15 @@ import logging
 import os
 from typing import Dict, Optional
 
-import torch
-
 from strainscan_tpu.build.db import load_tree_db
 from strainscan_tpu.config import BuildConfig, IdentifyConfig
 from strainscan_tpu.identify import low_depth
 from strainscan_tpu.identify.cst_search import identify_cluster
 from strainscan_tpu.io import fastx
-from strainscan_tpu_torch.device import resolve_device
 from strainscan_tpu_torch.identify import vote
 from strainscan_tpu_torch.identify.count import count_sample
 from strainscan_tpu_torch.index.hashtable import fp_table_of
+from strainscan_tpu_torch.parallel.sharded import resolve_mesh
 from strainscan_tpu_torch.timing import phase
 
 log = logging.getLogger("strainscan_tpu_torch.identify")
@@ -90,9 +90,10 @@ def run_identify(
     rgenome: str = "",
     use_native: bool = True,
 ) -> Optional[Dict[int, dict]]:
-    """Identify the strains of one sample on ``device`` ("cuda", "cuda:N"
-    or "cpu"; "cuda" without a usable GPU raises)."""
-    device: torch.device = resolve_device(device)
+    """Identify the strains of one sample on ``device``: "cuda" (every
+    visible GPU; raises without one), "cuda:N", "cpu", a device list or a
+    :class:`..parallel.sharded.Mesh`."""
+    device = resolve_mesh(device)
     os.makedirs(out_dir, exist_ok=True)
     paths = [p for p in (fq, fq2) if p]
     with phase("identify/load_db"):
@@ -105,7 +106,8 @@ def run_identify(
     # reverse-orientation read k-mers simply don't count there.
     with phase("identify/count"):
         counts = count_sample(fp_table_of(db.table), paths, device, cfg,
-                              canonical=False, use_native=use_native)
+                              canonical=False, use_native=use_native,
+                              keys=db.all_kmers)
     if cfg.strain_prob:
         prob = low_depth.identify_ranks(db, counts, cfg)
         generate_prob_report(prob, db.recls, out_dir)
@@ -132,7 +134,8 @@ def run_identify(
                        use_native=use_native)
         pdb_tree = load_tree_db(pdb)
         pcounts = count_sample(fp_table_of(pdb_tree.table), paths, device,
-                               cfg, use_native=use_native)
+                               cfg, use_native=use_native,
+                               keys=pdb_tree.all_kmers)
         res, l2 = _search_ladder(pdb_tree, pcounts, cfg)
         if not res:
             log.warning("No clusters can be detected (plasmid DB)!")

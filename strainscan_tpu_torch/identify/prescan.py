@@ -5,18 +5,21 @@ reference library/identify_strains_L2_Enet_Pscan_new_sp.py:177-478).  The
 host helpers and ``detect_strains`` are copies; the Pre-Scan column sums
 (:class:`_L2Kernels`) run as int32 masked reductions over the int8 0/1
 k-mer x strain matrix on ``device``, and the Elastic-Net fold Grams run on
-``device`` through :func:`..ops.enet.enet_cv_fit`.
+``device`` through :func:`..ops.enet.enet_cv_fit`.  With a mesh of several
+positions and at least ``cfg.shard_min_l2_rows`` rows, both split the
+k-mer axis over the mesh (``parallel.sharded``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from strainscan_tpu.config import IdentifyConfig
-from strainscan_tpu_torch.ops import enet
+from strainscan_tpu_torch.ops import enet, l2
+from strainscan_tpu_torch.parallel import sharded as psh
 from strainscan_tpu_torch.timing import phase_acc
 
 
@@ -94,35 +97,54 @@ class _L2Kernels:
         get_remainc (:94-108): same with the pre-loop used vector
         cal_cov_all / stat_cov (:33-49): X^T (y > 1) over X's support
 
+    With ``min_shard_rows`` set and ``l2_mesh`` granting a mesh, X and
+    every mask are split by rows over the mesh's positions (padded with
+    zero rows) and each column sum is the sum of per-position partials.
     The scan control flow (accept/reject, data-dependent exit) stays on
     the host, fetching one O(s) vector per round.
     """
 
-    def __init__(self, X: np.ndarray, device: torch.device):
+    def __init__(self, X: np.ndarray, device,
+                 min_shard_rows: Optional[int] = None):
         self.n, self.s = X.shape
         if X.size and (X.min() < 0 or X.max() > 1
                        or not np.array_equal(X, np.rint(X))):
             raise ValueError("Pre-Scan kernels require a 0/1 strain matrix")
-        self.device = device
-        self.Xd = torch.from_numpy(
-            np.ascontiguousarray(X, dtype=np.int8)).to(device)
+        X8 = np.ascontiguousarray(X, dtype=np.int8)
+        mesh = psh.resolve_mesh(device)
+        self.device = mesh.first
+        self.mesh = (psh.l2_mesh(mesh, self.n, min_shard_rows)
+                     if min_shard_rows is not None else None)
+        self._pad = 0
+        if self.mesh is not None:
+            self._pad = psh.pad_rows(self.mesh, self.n) - self.n
+            self.Xd = psh.shard_rows(self.mesh, np.pad(X8, ((0, self._pad),
+                                                            (0, 0))))
+        else:
+            self.Xd = torch.from_numpy(X8).to(self.device)
 
-    def to_mask(self, m: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(m, dtype=bool)).to(
-            self.device)
+    def to_mask(self, m: np.ndarray):
+        m = np.ascontiguousarray(m, dtype=bool)
+        if self.mesh is not None:
+            return psh.shard_rows(self.mesh, np.pad(m, (0, self._pad)))
+        return torch.from_numpy(m).to(self.device)
 
-    def colsum(self, mask: torch.Tensor) -> np.ndarray:
+    def colsum(self, mask) -> np.ndarray:
         """int32 [s]: per-strain count of set rows within X's support."""
-        prod = self.Xd * mask.to(torch.int8)[:, None]
-        return prod.sum(dim=0, dtype=torch.int32).cpu().numpy()
+        if self.mesh is not None:
+            return psh.sharded_colsum(self.mesh, self.Xd, mask)
+        return l2.masked_colsum(self.Xd, mask).cpu().numpy()
 
-    def colsum_unused(self, used: torch.Tensor,
-                      big: torch.Tensor) -> np.ndarray:
+    def colsum_unused(self, used, big) -> np.ndarray:
         """int32 [s]: X^T (~used & big) — one fused reduction per round."""
+        if self.mesh is not None:
+            return psh.sharded_colsum_unused(self.mesh, self.Xd, used, big)
         return self.colsum(~used & big)
 
-    def or_column(self, used: torch.Tensor, c: int) -> torch.Tensor:
+    def or_column(self, used, c: int):
         """used |= X[:, c] (kept device-resident across scan rounds)."""
+        if self.mesh is not None:
+            return psh.sharded_or_col(self.mesh, used, self.Xd, c)
         return used | (self.Xd[:, c] > 0)
 
 
@@ -140,7 +162,7 @@ def detect_strains(
     msn: int,
     pmode: int,
     emode: int,
-    device: torch.device,
+    device,
     cfg: IdentifyConfig = IdentifyConfig(),
 ):
     """detect_strains (:177-478).
@@ -159,7 +181,7 @@ def detect_strains(
     cutoff = msn * ksize
     # X is the 0/1 strain matrix (all_strains_re), so every Pre-Scan
     # statistic reduces to exact integer column sums (see _L2Kernels)
-    kern = _L2Kernels(X, device)
+    kern = _L2Kernels(X, device, min_shard_rows=cfg.shard_min_l2_rows)
     totals = kern.colsum(kern.to_mask(np.ones(X.shape[0], dtype=bool)))
     big_py = py > 1
     valid_all = kern.colsum(kern.to_mask(big_py))

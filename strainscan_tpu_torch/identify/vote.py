@@ -3,11 +3,12 @@
 Port of ``strainscan_tpu/identify/vote.py`` (reference
 library/Vote_Strain_L2_Lasso_new_sp.py:247-438).  The report writers are
 copies; the sample is streamed ONCE against a union table of all detected
-multi-strain clusters' k-mers through the port's counter on ``device``, and
-per-cluster count vectors are sliced out of the combined result.  Unlike
-the JAX package, the union is not padded with unreachable keys: that pad
-only bounded the number of compiled shapes, and pad keys never match a
-window, so counts are unchanged.
+multi-strain clusters' k-mers through the port's counter on ``device`` (a
+device or a mesh, see ``parallel.sharded.resolve_mesh``), and per-cluster
+count vectors are sliced out of the combined result.  Unlike the JAX
+package, the union is not padded with unreachable keys: that pad only
+bounded the number of compiled shapes, and pad keys never match a window,
+so counts are unchanged.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ from collections import defaultdict
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from strainscan_tpu.build.db import L2DB, load_l2_db, load_manifest
 from strainscan_tpu.config import IdentifyConfig
@@ -126,13 +126,13 @@ def merge_res(out_dir: str, res: Dict[int, dict]) -> None:
 
 
 def _count_union(clusters: List[L2DB], fq_paths, cfg: IdentifyConfig,
-                 device: torch.device, canonical: bool,
+                 device, canonical: bool,
                  use_native: bool) -> Dict[int, np.ndarray]:
     """One streaming pass over the sample for all clusters' k-mers."""
     union = np.unique(np.concatenate([cl.kmers for cl in clusters]))
     fpt = FpTable.build(union, k=clusters[0].table.k)
     counts = count_sample(fpt, fq_paths, device, cfg, canonical=canonical,
-                          use_native=use_native)
+                          use_native=use_native, keys=union)
     out = {}
     for cl in clusters:
         idx = np.searchsorted(union, cl.kmers)
@@ -147,7 +147,7 @@ def vote_strain_l2(
     res: Dict[int, dict],
     l2: int,
     cfg: IdentifyConfig,
-    device: torch.device,
+    device,
     pmode: int = 0,
     emode: int = 0,
     cluster_ids: Optional[Sequence[int]] = None,
@@ -191,7 +191,7 @@ def vote_strain_l2_batch(
     out_dir: str,
     res: Dict[int, dict],
     l2: int,
-    device: torch.device,
+    device,
     cfg: IdentifyConfig = IdentifyConfig(),
     pmode: int = 0,
     emode: int = 0,

@@ -1,12 +1,13 @@
 """Fingerprint-table hashing and lookup on tensors, and the device table.
 
 Port of the device half of ``strainscan_tpu/index/hashtable.py``
-(``mix_jnp``, ``fp2_jnp``, ``lookup_fp_device``).  Table construction stays
-the shared host code (``FpTable.build`` / ``from_kmer_table``); this module
-turns a host :class:`FpTable` into device tensors, once per device.
+(``mix_jnp``, ``fp2_jnp``, ``lookup_fp_device``, ``lookup_device``).  Table
+construction stays the shared host code (``FpTable.build`` /
+``from_kmer_table``, ``KmerTable.build``); this module turns a host
+:class:`FpTable` or :class:`KmerTable` into device tensors, once per device.
 
 uint32 values are int64 tensors in ``[0, 2**32)`` (see :mod:`..kmer.device`);
-the device fingerprint table is an int32 tensor holding the uint32 bits.
+the device tables are int32 tensors holding the uint32 bits.
 """
 
 from __future__ import annotations
@@ -61,6 +62,62 @@ def lookup_fp(fp_table: torch.Tensor, n_buckets: int, bucket: int, seed: int,
     int32 slot ids, -1 miss."""
     b = (mix(hi, lo, seed) & (n_buckets - 1)).to(torch.int32)
     return lookup_fp_from_prep(fp_table, b, u32_to_i32(fp2(hi, lo)), bucket)
+
+
+def lookup_exact(table: torch.Tensor, n_buckets: int, max_probe: int,
+                 hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Exact lookup over the interleaved table (``lookup_device``): int32
+    ids of the queries' k-mers, -1 miss, same shape as ``hi``.
+
+    ``table``: int32 ``[n_buckets, 3 * BUCKET]`` (``KmerTable.interleaved``:
+    hi, lo, val per slot).  The bucket hash is the UNSEEDED ``mix``; probe
+    ``p`` reads row ``(bucket + p) & (n_buckets - 1)``; a lane hits when
+    both halves match and its value is >= 0, a row yields the largest hit
+    value, and the first probe that hits wins."""
+    shape = hi.shape
+    hi = hi.reshape(-1)
+    lo = lo.reshape(-1)
+    b = (mix(hi, lo) & (n_buckets - 1)).to(torch.int64)
+    out = torch.full(hi.shape, -1, dtype=torch.int32, device=hi.device)
+    for p in range(max_probe):
+        rows = table.index_select(0, (b + p) & (n_buckets - 1))  # [Q, 24]
+        thi = rows[:, 0::3].to(torch.int64) & M32
+        tlo = rows[:, 1::3].to(torch.int64) & M32
+        tval = rows[:, 2::3]
+        hit = (thi == hi[:, None]) & (tlo == lo[:, None]) & (tval >= 0)
+        found = torch.where(hit, tval, -1).amax(dim=1)
+        out = torch.where(out < 0, found, out)
+    return out.reshape(shape)
+
+
+@dataclasses.dataclass
+class DeviceKmerTable:
+    """A :class:`KmerTable` resident on one device (exact probe mode)."""
+
+    table: torch.Tensor       # int32 [n_buckets, 3 * BUCKET] interleaved
+    n_buckets: int
+    max_probe: int
+    n_keys: int
+
+
+def kmer_table_to_device(table: KmerTable,
+                         device: torch.device) -> DeviceKmerTable:
+    """Upload ``table.interleaved()`` to ``device``, cached on the table
+    per device, as :func:`fp_table_to_device` caches."""
+    device = torch.device(device)
+    cache = getattr(table, "_torch_exact_tables", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(table, "_torch_exact_tables", cache)
+    out = cache.get(str(device))
+    if out is None:
+        inter = torch.from_numpy(table.interleaved())
+        out = DeviceKmerTable(table=inter.to(device),
+                              n_buckets=table.n_buckets,
+                              max_probe=table.max_probe,
+                              n_keys=table.n_keys)
+        cache[str(device)] = out
+    return out
 
 
 @dataclasses.dataclass

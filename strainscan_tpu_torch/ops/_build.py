@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles the sources into a shared library with a plain C
-interface (``-gencode arch=compute_90a,code=sm_90a``), named by a hash of
-the sources and flags, under ``csrc/_build/``; ``ctypes`` loads it.  A
-missing ``nvcc`` or a failed build raises: there is no fallback.
+``nvcc`` compiles each source to an object, all at once in parallel
+(``-gencode arch=compute_90a,code=sm_90a``), and links them into one shared
+library with a plain C interface, named by a hash of the sources, headers
+and flags, under ``csrc/_build/``; ``ctypes`` loads it.  A missing ``nvcc``
+or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
-SOURCES = ("probe_count.cu",)
+SOURCES = ("probe_count.cu", "count_exact.cu")
+HEADERS = ("kmer_window.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -39,23 +41,38 @@ def nvcc_path() -> str:
                        "kernels cannot be built")
 
 
+def _run(cmds):
+    """Run the commands in parallel; raise with the output of a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+
+
 def build() -> str:
     """Path of the compiled library, building it if it is not there yet."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
-    so_path = os.path.join(BUILD_DIR, f"probe_count-{h.hexdigest()[:16]}.so")
+    tag = h.hexdigest()[:16]
+    so_path = os.path.join(BUILD_DIR, f"kernels-{tag}.so")
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    objs = [os.path.join(BUILD_DIR, f"{name}-{tag}.{os.getpid()}.o")
+            for name in SOURCES]
+    _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, name)]
+          for name, obj in zip(SOURCES, objs)])
     tmp = f"{so_path}.tmp{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+    _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, so_path)
     return so_path
 
@@ -71,8 +88,11 @@ def lib() -> ctypes.CDLL:
             so.probe_prep_launch.restype = i
             so.probe_prep_launch.argtypes = [i, p, ll, i, i, i, u, u, p, p, p]
             so.count_fp_launch.restype = i
-            so.count_fp_launch.argtypes = [i, p, p, p, ll, i, i, i, i, i, p,
-                                           u, i, u, p, p]
+            so.count_fp_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i, i,
+                                           p, u, i, u, p, p]
+            so.count_exact_launch.restype = i
+            so.count_exact_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i,
+                                              i, p, u, i, ll, p, p]
             so.cuda_error_string.restype = ctypes.c_char_p
             so.cuda_error_string.argtypes = [i]
             _LIB = so

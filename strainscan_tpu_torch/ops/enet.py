@@ -5,9 +5,12 @@ Port of ``strainscan_tpu/ops/enet.py`` (which replaces sklearn's
 identify_strains_L2_Enet_Pscan_new_sp.py:433-456).  The host helpers are
 copies of the JAX package's; only the fold Grams move to torch:
 ``X^T diag(t_f) X`` for every fold (the all-ones full-data fold included)
-as float64 matrix products over row blocks on ``device``.  The strain
-matrix is 0/1, so every Gram entry is an integer count <= n, far below
-2**53: float64 sums are exact in any order and equal the JAX int32 Grams.
+as float64 matrix products over row blocks on ``device``
+(:func:`..ops.l2.fold_grams`), or, on a mesh of several positions above
+``cfg.shard_min_l2_rows`` rows, as per-position partials summed across the
+mesh.  The strain matrix is 0/1, so every Gram entry is an integer count
+<= n, far below 2**53: float64 sums are exact in any order and equal the
+JAX int32 Grams.
 """
 
 from __future__ import annotations
@@ -18,9 +21,8 @@ import numpy as np
 import torch
 
 from strainscan_tpu.config import IdentifyConfig
-
-# rows per Gram block: bounds the [F, block, s] float64 weighted copy
-GRAM_BLOCK = 16384
+from strainscan_tpu_torch.ops import l2
+from strainscan_tpu_torch.parallel import sharded as psh
 
 
 def shuffle_split_masks(n: int, n_splits: int, test_size: float,
@@ -87,27 +89,37 @@ def _cd_gram(gram: np.ndarray, moment: np.ndarray, n: int, alpha: float,
     return w
 
 
-def _fold_grams(X: np.ndarray, y: np.ndarray, train: np.ndarray,
-                device: torch.device, block: int = GRAM_BLOCK):
+def _fold_grams(X: np.ndarray, y: np.ndarray, train: np.ndarray, device,
+                block: int = l2.GRAM_BLOCK,
+                min_shard_rows: "int | None" = None):
     """Per-fold Grams ``X^T diag(t_f) X`` and moments ``X^T (t_f * y)``.
 
     The Grams accumulate over row blocks on ``device`` in float64, so
     device memory is O(F * block * s) and the [F, n, s] fold-replicated
-    design is never built.  Moments are s-sized and computed on the host
-    in float64, as in the JAX package.  Returns float64 NumPy arrays
-    ``([F, s, s], [F, s])``."""
+    design is never built.  With ``min_shard_rows`` set (the caller sets it
+    only for a 0/1 matrix) and ``l2_mesh`` granting a mesh, the k-mer axis
+    splits over the mesh (int8 rows, zero-padded) and the per-position
+    Grams are summed.
+    Moments are s-sized and computed on the host in float64, as in the JAX
+    package.  Returns float64 NumPy arrays ``([F, s, s], [F, s])``."""
     n, s = X.shape
     F = train.shape[0]
     # one [F, n] @ [n, s] GEMM instead of F matvecs
     moments = (train * y).astype(np.float64) @ X.astype(np.float64)
-    grams = torch.zeros((F, s, s), dtype=torch.float64, device=device)
-    for i in range(0, n, block):
-        xb = torch.from_numpy(np.ascontiguousarray(
-            X[i:i + block], dtype=np.float64)).to(device)       # [b, s]
-        tb = torch.from_numpy(np.ascontiguousarray(
-            train[:, i:i + block], dtype=np.float64)).to(device)  # [F, b]
-        xw = tb[:, :, None] * xb[None]                           # [F, b, s]
-        grams += torch.matmul(xw.transpose(1, 2), xb)
+    mesh = psh.resolve_mesh(device)
+    if min_shard_rows is not None:
+        sh = psh.l2_mesh(mesh, n, min_shard_rows)
+        if sh is not None:
+            pad = psh.pad_rows(sh, n) - n
+            X8 = np.pad(X.astype(np.int8), ((0, pad), (0, 0)))
+            T8 = np.pad(train.astype(np.int8), ((0, 0), (0, pad)))
+            grams = psh.sharded_fold_grams(
+                sh, psh.shard_rows(sh, X8), psh.shard_rows(sh, T8, axis=1))
+            return grams, moments
+    dev = mesh.first
+    grams = l2.fold_grams(torch.from_numpy(np.ascontiguousarray(X)).to(dev),
+                          torch.from_numpy(np.ascontiguousarray(train)).to(dev),
+                          block)
     return grams.cpu().numpy(), moments
 
 
@@ -178,7 +190,7 @@ class EnetResult:
     mse_path: np.ndarray
 
 
-def enet_cv_fit(X: np.ndarray, y: np.ndarray, device: torch.device,
+def enet_cv_fit(X: np.ndarray, y: np.ndarray, device,
                 cfg: IdentifyConfig = IdentifyConfig()) -> EnetResult:
     """ElasticNetCV + mpm rule + final ElasticNet fit (reference
     identify_strains...sp.py:431-456), fold Grams on ``device``."""
@@ -198,7 +210,8 @@ def enet_cv_fit(X: np.ndarray, y: np.ndarray, device: torch.device,
                              and np.array_equal(X, np.rint(X)))
     if binary:
         masks_ext = np.vstack([train_masks, np.ones((1, n), dtype=bool)])
-        grams_ext, moments_ext = _fold_grams(X, y, masks_ext, device)
+        grams_ext, moments_ext = _fold_grams(
+            X, y, masks_ext, device, min_shard_rows=cfg.shard_min_l2_rows)
         grams, gram_full = grams_ext[:-1], grams_ext[-1]
         moments, moment_full = moments_ext[:-1], moments_ext[-1]
     else:

@@ -18,7 +18,7 @@ from strainscan_tpu_torch.identify.count import count_sample
 from strainscan_tpu_torch.index.hashtable import fp_table_of
 from strainscan_tpu_torch.kmer import device as tdev
 from strainscan_tpu_torch.ops import probe
-from strainscan_tpu_torch.ops.count import CountPipeline
+from strainscan_tpu_torch.ops.count import CountPipeline, shape_batch
 
 from _torch_sim import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -90,6 +90,29 @@ def test_vbytes_and_vlen_forms_both_used():
     dirty[0, 10] = 4
     assert [p[0] for p in pipe.prepare_batch(clean)] == ["vlen"]
     assert [p[0] for p in pipe.prepare_batch(dirty)] == ["vbytes"]
+
+
+@pytest.mark.parametrize("first, later, multiple, shape, blocks", [
+    (10, 10, 1, (10, 7), [10]),
+    (10, 4, 1, (10, 7), [10]),           # a short batch is padded
+    (10, 23, 1, (10, 7), [10, 10, 10]),  # an oversize batch is split
+    (10, 23, 8, (16, 7), [16, 16]),      # rows a multiple of the mesh
+    (0, 3, 4, (4, 7), [4]),              # an empty first batch
+])
+def test_shape_batch(first, later, multiple, shape, blocks):
+    """The batch-shape policy both pipelines share: pinned by the first
+    batch, padded with code-4 rows, oversize batches split."""
+    rng = np.random.default_rng(5)
+    got, _ = shape_batch(np.zeros((first, 7), np.uint8), None, multiple)
+    assert got == shape
+    codes = rng.integers(0, 4, size=(later, 7)).astype(np.uint8)
+    _, out = shape_batch(codes, got, multiple)
+    assert [b.shape[0] for b in out] == blocks
+    flat = np.concatenate(out)
+    np.testing.assert_array_equal(flat[:later], codes)
+    assert (flat[later:] == 4).all()
+    with pytest.raises(ValueError, match="maxlen"):
+        shape_batch(codes[:, :6], got, multiple)
 
 
 def test_counts_above_65535_and_host_oracle():

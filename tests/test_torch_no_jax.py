@@ -5,6 +5,7 @@ import, then imports the port's modules: the host with the card has no
 JAX, so any transitive jax import would break the port there.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -40,7 +41,11 @@ MODULES = [
     "strainscan_tpu_torch.identify.count",
     "strainscan_tpu_torch.ops.enet",
     "strainscan_tpu_torch.ops.count",
+    "strainscan_tpu_torch.ops.l2",
     "strainscan_tpu_torch.ops.probe",
+    "strainscan_tpu_torch.parallel",
+    "strainscan_tpu_torch.parallel.sharded",
+    "strainscan_tpu_torch.parallel.distributed",
 ]
 
 
@@ -90,3 +95,20 @@ def test_cli_cuda_without_gpu_raises(tmp_path):
     with pytest.raises(ValueError):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_imports_only_the_port():
+    """The smoke runs on a host without JAX: it names no module of the JAX
+    package, only the port's."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in
+           ("jax", "jaxlib", "strainscan_tpu")]
+    assert not bad, f"chip_smoke.py imports {bad}"
+    assert any(n.startswith("strainscan_tpu_torch.") for n in names)
