@@ -44,17 +44,31 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    position per batch; and a 2-process gloo run of ``batch-identify`` on
    the same card (torchrun's variables set by hand) must give
    byte-identical reports too.
+6. The measurement path.  row_gather_kernel (the port of the Pallas
+   dma_gather_kernel of benchmarks/probe_bench3.py) bit-exact against its
+   plain twin at row widths 64 and 128 and (tile, nbuf) in {(2048, 8),
+   (2048, 16), (8192, 16)}, with indices past the last whole tile; the
+   gather section of bench.probe_study at full size (a 256 MiB table, 2^23
+   indices; every tile of every configuration equal to the NumPy oracle,
+   the kernel timed against its plain twin); entry("cuda") equal to
+   entry("cpu"); bench.count's ecoli tier with one rep (its
+   triple-stream and host-oracle checks held); and the trace hook: a build
+   and a GPU identify through the CLI with STRAINSCAN_TRACE_DIR set write
+   one torch.profiler trace per phase, the count's with count_fp_kernel's
+   device events, and reports byte-identical to an untraced run.
 
 Each path's launch counters are set to 0 just before it and read just
 after: the main path (phase 4's GPU identify) for count_fp_kernel, the
-exact-mode count of phase 3 for count_exact_kernel.  probe_prep_kernel is
+exact-mode count of phase 3 for count_exact_kernel, the study's gather
+section of phase 6 for row_gather_kernel.  probe_prep_kernel is
 the standalone parity seam of the Pallas probe_prep, on no path (its hash
 runs fused inside the count kernels), so its main-path count is 0 and the
 kernels line also gives its phase-2 launches.
 
 Reduced for time: phase 4's DB is 40 families x up to 3 variants x 100 kb
 (80 genomes), not the 823 clusters of the reference's E. coli DB; phases 3
-and 5 keep the count at the full 28.6 M-key table.
+and 5 keep the count at the full 28.6 M-key table; phase 6 runs bench.count's
+ecoli tier with one rep of its three passes (bench.count runs five).
 
 Prints progress with the card's name and power limit beside every number,
 then the card line, a JSON line of the kernels, and as the last line
@@ -94,6 +108,10 @@ MAXLEN = 256   # IdentifyConfig.max_read_len: identify pads batches to it
 # phase 4
 FAMILIES, VARIANTS, GLEN = 40, 3, 100_000
 GPU = "cuda"   # the --device of the GPU runs
+# phase 6: the row gather's parity shapes (a tail past the last whole tile)
+# and the study configuration the kernels line reports
+GATHER_ROWS, GATHER_W = 1 << 18, (1 << 20) + 1000
+STUDY_CONFIG = "tile2048_nbuf16"
 
 
 
@@ -104,13 +122,6 @@ def check(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
 
 
 # ----------------------------------------------------------- synthesis
@@ -155,30 +166,16 @@ def genome_keys(genome: np.ndarray, dev) -> np.ndarray:
 
 def host_window_keys(codes: np.ndarray):
     """NumPy oracle of the window keys and their validity."""
-    m = codes.shape[1] - K + 1
-    c = codes.astype(np.uint64)
-    key = np.zeros((codes.shape[0], m), dtype=np.uint64)
-    for i in range(K):
-        key = (key << np.uint64(2)) | (c[:, i:i + m] & np.uint64(3))
-    bad = np.cumsum(np.pad(codes >= 4, ((0, 0), (1, 0))), axis=1)
-    return key, (bad[:, K:] - bad[:, :-K]) == 0
+    from strainscan_tpu_torch.bench.count import host_window_keys as keys
+
+    return keys(codes, K)
 
 
-# -------------------------------------------------------------- timing
 def cuda_ms(fn, iters: int) -> float:
     """Mean ms per call of fn over iters launches, by CUDA events."""
-    import torch
+    from strainscan_tpu_torch.bench import cuda_ms as timed
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return timed(fn, iters)
 
 
 # -------------------------------------------------------------- phases
@@ -214,7 +211,8 @@ def phase_parity(dev, tag: str) -> dict:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
     rng = np.random.default_rng(11)
-    errs = {name: 0 for name in probe.LAUNCHES}
+    errs = {name: 0 for name in probe.LAUNCHES
+            if name != "row_gather_kernel"}   # phase 6 holds that one
     probe.reset_launches()
     n_probe = 0
     for length in PARITY_LENGTHS:
@@ -292,7 +290,7 @@ def phase_parity(dev, tag: str) -> dict:
                 f"(table {kt.n_keys} keys, max_probe {kt.max_probe}) [{tag}]")
     launches = dict(probe.LAUNCHES)
     check(launches == {"probe_prep_kernel": n_probe, "count_fp_kernel": 3,
-                       "count_exact_kernel": 4},
+                       "count_exact_kernel": 4, "row_gather_kernel": 0},
           f"parity launches {launches}")
     log(f"[parity] kernel launches {launches}")
     return {name: (errs[name], launches[name]) for name in errs}
@@ -791,6 +789,121 @@ def phase_scale(dev, tag: str, count: dict, exact: dict,
         f"run; {dt} s for both processes, start-up included [{tag}]")
 
 
+def phase_measure(dev, tag: str) -> dict:
+    """The measurement path: row_gather_kernel against its plain twin, the
+    study's gather section at full size (its launches counted), entry() on
+    the card against the CPU, and bench.count's ecoli tier."""
+    import torch
+
+    from strainscan_tpu_torch import entry
+    from strainscan_tpu_torch.bench import count as bench_count
+    from strainscan_tpu_torch.bench import probe_study
+    from strainscan_tpu_torch.ops import gather, probe
+
+    rng = np.random.default_rng(13)
+    err = 0
+    for roww in (64, 128):
+        table = torch.from_numpy(rng.integers(
+            0, 1 << 32, size=(GATHER_ROWS, roww), dtype=np.uint32)
+            .view(np.int32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, GATHER_ROWS, size=GATHER_W,
+                                            dtype=np.int32)).to(dev)
+        for tile, nbuf in probe_study.CONFIGS:
+            got = gather.row_gather_xor(table, idx, tile=tile, nbuf=nbuf)
+            want = gather.row_gather_xor_plain(table, idx, tile=tile,
+                                               nbuf=nbuf)
+            sync(dev)
+            check(torch.equal(got, want), f"row_gather_kernel != plain "
+                  f"(roww={roww}, tile={tile}, nbuf={nbuf})")
+            err = max(err, int((got.to(torch.int64) - want.to(torch.int64))
+                               .abs().max()))
+    log(f"[measure] row_gather_kernel bit-exact against its plain twin at "
+        f"row widths 64 and 128, (tile, nbuf) in {probe_study.CONFIGS}, "
+        f"{GATHER_W} indices into {GATHER_ROWS} rows [{tag}]")
+
+    probe.reset_launches()
+    t0 = time.perf_counter()
+    study, _, _ = probe_study.gather_section(dev)
+    launches = probe.LAUNCHES["row_gather_kernel"]
+    check(launches > 0, f"study path launches {dict(probe.LAUNCHES)}")
+    log(f"[measure] probe_study gather section ({study['windows']} indices, "
+        f"{study['table_MB']} MB table) in {time.perf_counter() - t0} s, "
+        f"{launches} row_gather_kernel launches; torch gather-and-reduce "
+        f"{study['xla_gather_Mrows_s_256B']} M rows/s (256 B), "
+        f"{study['xla_gather_Mrows_s_512B']} (512 B) [{tag}]")
+    for width in ("512B", "256B"):
+        for cfg, r in study[f"dma_gather_Mrows_s_{width}"].items():
+            log(f"[measure] row_gather_kernel {width} {cfg}: {r['ms']} ms vs "
+                f"plain {r['plain_ms']} ms per call, {r['Mrows_s']} M rows/s; "
+                f"every tile equal to the NumPy oracle [{tag}]")
+
+    fn, args = entry.entry(dev)
+    got = fn(*args)
+    want_fn, want_args = entry.entry("cpu")
+    want = want_fn(*want_args)
+    sync(dev)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "entry(cuda) != entry(cpu)")
+    log(f"[measure] entry(cuda) equals entry(cpu): {int(got[0].sum())} hits, "
+        f"moments and Gram exact")
+
+    res = bench_count.run(dev, tiers=[t for t in bench_count.TIERS
+                                      if t[0] == "ecoli"], reps=1)
+    check(res["metric"] == "kmer_match_reads_per_s_ecoli_scale"
+          and res["value"] > 0, "bench.count result")
+    log(f"[measure] bench.count ecoli tier, one rep: {json.dumps(res)}")
+    main512 = study["dma_gather_Mrows_s_512B"][STUDY_CONFIG]
+    return dict(launches=launches, err=err, ms=main512["ms"],
+                plain_ms=main512["plain_ms"])
+
+
+def phase_trace(tag: str, ident: dict) -> None:
+    """The trace hook on the card: a build and a GPU identify through the
+    CLI with STRAINSCAN_TRACE_DIR set write one torch.profiler trace per
+    phase (identify/count's holding count_fp_kernel's device events), with
+    reports byte-identical to an untraced run."""
+    from strainscan_tpu_torch import cli
+    from strainscan_tpu_torch.timing import TRACE_ENV, trace_path
+
+    trace_dir = os.path.join(FIXTURE, "trace")
+    gdir = os.path.join(FIXTURE, "genomes2")
+    os.makedirs(gdir)
+    for name in ("F001V0", "F002V0"):
+        shutil.copy(os.path.join(FIXTURE, "genomes", name + ".fa"), gdir)
+    out = ident["out"]
+    secs = {}
+    for run in ("untraced", "traced"):
+        if run == "traced":
+            os.environ[TRACE_ENV] = trace_dir
+        try:
+            t0 = time.perf_counter()
+            check(cli.main(["build", "-i", gdir, "-o", os.path.join(
+                FIXTURE, f"DB_{run}")]) == 0, f"{run} build")
+            secs[f"build/{run}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            check(cli.main(["identify", "-i", ident["samples"]["single"],
+                            "-d", ident["db"], "-o", os.path.join(out, run),
+                            "--device", GPU]) == 0, f"{run} identify")
+            secs[f"identify/{run}"] = time.perf_counter() - t0
+        finally:
+            os.environ.pop(TRACE_ENV, None)
+    same_reports(os.path.join(out, "traced"), os.path.join(out, "untraced"),
+                 "traced identify")
+    sizes = {}
+    for name in ("build", "identify/load_db", "identify/count",
+                 "identify/cst_search", "identify/l2_vote"):
+        path = trace_path(trace_dir, name)
+        check(os.path.isfile(path), f"no trace {path}")
+        sizes[name] = os.path.getsize(path)
+    with open(trace_path(trace_dir, "identify/count")) as fh:
+        check("count_fp_kernel" in fh.read(),
+              "identify/count's trace holds no count_fp_kernel event")
+    log(f"[trace] STRAINSCAN_TRACE_DIR: traced build and GPU identify wrote "
+        f"one trace per phase (bytes {sizes}), identify/count's with "
+        f"count_fp_kernel device events; reports byte-identical to the "
+        f"untraced run; s {secs} [{tag}]")
+
+
 def main() -> int:
     try:
         import torch
@@ -808,6 +921,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from strainscan_tpu_torch.bench import card_line
+
     tag = card_line()
     dev = torch.device("cuda", 0)
     shutil.rmtree(FIXTURE, ignore_errors=True)
@@ -819,6 +934,8 @@ def main() -> int:
     exact = phase_exact(dev, tag, count)
     launches, ident = phase_identify(tag)
     phase_scale(dev, tag, count, exact, ident)
+    measure = phase_measure(dev, tag)
+    phase_trace(tag, ident)
     shutil.rmtree(FIXTURE, ignore_errors=True)
 
     ms = {**count["ms"], **exact["ms"]}
@@ -845,6 +962,13 @@ def main() -> int:
         "launches": exact["launches"],
         "max_abs_err": parity["count_exact_kernel"][0],
         "ms": min(ms["count_exact"]), "plain_ms": min(ms["count_exact_plain"]),
+    }, {
+        "name": "row_gather_kernel", "route": "cuda",
+        "source": src + "row_gather.cu",
+        "replaces": "benchmarks/probe_bench3.py:142",
+        "launches": measure["launches"],
+        "max_abs_err": measure["err"],
+        "ms": measure["ms"], "plain_ms": measure["plain_ms"],
     }]
     print(tag)
     print(json.dumps({"kernels": kernels}))

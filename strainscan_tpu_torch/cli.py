@@ -174,6 +174,7 @@ def main(argv=None) -> int:
     if args.cmd == "build":
         from strainscan_tpu.build.pipeline import build_database
         from strainscan_tpu.config import BuildConfig
+        from strainscan_tpu_torch.timing import phase, without_jax_trace
 
         cfg = BuildConfig(
             ksize=args.ksize, threads=args.threads, uk_num=args.uknum,
@@ -184,9 +185,12 @@ def main(argv=None) -> int:
         if args.mas:
             print("note: -m/--strainest_sample MSA mode is subsumed by "
                   "presence-pattern k-mer selection")
-        build_database(args.input_fa, args.out_dir, cfg,
-                       custom_cls_file=args.cls_custom_file or None,
-                       resume=args.resume)
+        # the shared builder's own phases would import jax to trace: trace
+        # the whole build once here instead
+        with phase("build"), without_jax_trace():
+            build_database(args.input_fa, args.out_dir, cfg,
+                           custom_cls_file=args.cls_custom_file or None,
+                           resume=args.resume)
         return 0
 
     if args.cmd == "identify":

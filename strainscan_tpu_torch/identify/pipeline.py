@@ -27,7 +27,7 @@ from strainscan_tpu_torch.identify import vote
 from strainscan_tpu_torch.identify.count import count_sample
 from strainscan_tpu_torch.index.hashtable import fp_table_of
 from strainscan_tpu_torch.parallel.sharded import resolve_mesh
-from strainscan_tpu_torch.timing import phase
+from strainscan_tpu_torch.timing import phase, without_jax_trace
 
 log = logging.getLogger("strainscan_tpu_torch.identify")
 
@@ -129,9 +129,10 @@ def run_identify(
             plas_ref = rgenome
         pdb = os.path.join(out_dir, "DB_plasmid")
         log.info("building plasmid DB from %s", plas_ref)
-        build_database(plas_ref, pdb,
-                       BuildConfig(ksize=cfg.ksize, min_kmer=500),
-                       use_native=use_native)
+        with without_jax_trace():   # its phase hook would import jax
+            build_database(plas_ref, pdb,
+                           BuildConfig(ksize=cfg.ksize, min_kmer=500),
+                           use_native=use_native)
         pdb_tree = load_tree_db(pdb)
         pcounts = count_sample(fp_table_of(pdb_tree.table), paths, device,
                                cfg, use_native=use_native,

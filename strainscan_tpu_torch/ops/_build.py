@@ -19,7 +19,7 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
-SOURCES = ("probe_count.cu", "count_exact.cu")
+SOURCES = ("probe_count.cu", "count_exact.cu", "row_gather.cu")
 HEADERS = ("kmer_window.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -93,6 +93,8 @@ def lib() -> ctypes.CDLL:
             so.count_exact_launch.restype = i
             so.count_exact_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i,
                                               i, p, u, i, ll, p, p]
+            so.row_gather_launch.restype = i
+            so.row_gather_launch.argtypes = [i, p, ll, i, p, ll, i, i, p, p]
             so.cuda_error_string.restype = ctypes.c_char_p
             so.cuda_error_string.argtypes = [i]
             _LIB = so

@@ -32,8 +32,10 @@ from strainscan_tpu_torch.index.hashtable import (fp2, lookup_exact,
 from strainscan_tpu_torch.kmer import device as kdev
 from strainscan_tpu_torch.ops import _build
 
+# every kernel's launches, the measurement path's row_gather_kernel
+# (ops/gather.py) included, so reset_launches covers them all
 LAUNCHES = {"probe_prep_kernel": 0, "count_fp_kernel": 0,
-            "count_exact_kernel": 0}
+            "count_exact_kernel": 0, "row_gather_kernel": 0}
 
 # rows per chunk of the plain counts: bounds their [rows * M, row] gathers
 # (1.9 GB at 8192 x 226 x 64 int32 plus temporaries)

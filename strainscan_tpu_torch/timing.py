@@ -1,15 +1,34 @@
-"""Phase timers (wall clock and RSS), without a device-trace hook."""
+"""Phase timers (wall clock and RSS) and the opt-in ``torch.profiler`` trace.
+
+The counterpart of ``strainscan_tpu/utils/profiling.py``.  With
+``STRAINSCAN_TRACE_DIR`` set, :func:`phase` also traces the phase with
+``torch.profiler`` (CPU activity, plus CUDA activity when a GPU is available)
+and writes one Chrome trace per phase name, ``<dir>/<name>.pt.trace.json``
+(a name such as ``identify/count`` makes a subdirectory).  Two profilers
+cannot run at once in a process, so a phase that opens while a trace is
+running only times.  A failing export raises.
+
+The shared host code of ``strainscan_tpu`` (the DB build) has its own hook,
+which imports jax when the variable is set; the port runs it under
+:func:`without_jax_trace`.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 
 log = logging.getLogger("strainscan_tpu_torch")
 
+TRACE_ENV = "STRAINSCAN_TRACE_DIR"
+
 # last elapsed seconds per phase name (accumulated for phase_acc)
 PHASE_TIMES: dict = {}
+
+# True while a phase's profiler runs in this process
+_tracing = False
 
 
 def _rss_gb() -> float:
@@ -23,11 +42,41 @@ def _rss_gb() -> float:
     return float("nan")
 
 
+def trace_path(trace_dir: str, name: str) -> str:
+    """Where the trace of phase ``name`` goes."""
+    return os.path.join(trace_dir, name + ".pt.trace.json")
+
+
+@contextlib.contextmanager
+def _trace(path: str):
+    """Profile the body with torch.profiler; write its Chrome trace."""
+    global _tracing
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    _tracing = True
+    try:
+        with profile(activities=activities) as prof:
+            yield
+    finally:
+        _tracing = False
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+
+
 @contextlib.contextmanager
 def phase(name: str):
-    """Log the elapsed wall time and RSS of a pipeline phase."""
+    """Log the elapsed wall time and RSS of a pipeline phase; trace it when
+    ``STRAINSCAN_TRACE_DIR`` is set and no trace is running."""
+    trace_dir = os.environ.get(TRACE_ENV)
+    ctx = (_trace(trace_path(trace_dir, name)) if trace_dir and not _tracing
+           else contextlib.nullcontext())
     t0 = time.perf_counter()
-    yield
+    with ctx:
+        yield
     dt = time.perf_counter() - t0
     PHASE_TIMES[name] = dt
     log.info("phase %-28s %8.2fs  rss %.2f GB", name, dt, _rss_gb())
@@ -39,3 +88,18 @@ def phase_acc(name: str):
     t0 = time.perf_counter()
     yield
     PHASE_TIMES[name] = PHASE_TIMES.get(name, 0.0) + (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def without_jax_trace():
+    """Run shared ``strainscan_tpu`` host code with ``STRAINSCAN_TRACE_DIR``
+    removed from the environment, restored afterwards: that code's phase
+    hook imports jax, which a GPU host lacks, and nests ``jax.profiler``
+    traces, which cannot nest.  Wrap the call in a :func:`phase` to trace
+    it once with torch.profiler instead."""
+    saved = os.environ.pop(TRACE_ENV, None)
+    try:
+        yield
+    finally:
+        if saved is not None:
+            os.environ[TRACE_ENV] = saved

@@ -22,7 +22,7 @@ from strainscan_tpu.kmer import pack
 from strainscan_tpu_torch.index.hashtable import (fp_table_to_device,
                                                   kmer_table_to_device)
 from strainscan_tpu_torch.kmer.device import from_u32
-from strainscan_tpu_torch.ops import probe
+from strainscan_tpu_torch.ops import gather, probe
 from strainscan_tpu_torch.identify.pipeline import run_identify
 from strainscan_tpu_torch.parallel import (ShardedCountPipeline, ShardedTable,
                                            make_mesh, sharded_count)
@@ -133,6 +133,40 @@ def test_count_exact_kernel_equals_plain(dev, form, canonical):
     assert probe.LAUNCHES["count_exact_kernel"] == before + 1
     assert torch.equal(c1, c2)
     assert int(c1[:-1].sum()) > 100_000
+
+
+@pytest.mark.parametrize("roww", [64, 128])
+@pytest.mark.parametrize("tile,nbuf", [(2048, 8), (2048, 16), (8192, 16),
+                                       (32, 32), (16384, 1)])
+def test_row_gather_kernel_equals_plain(dev, roww, tile, nbuf):
+    """Shared memory above the default 48 KiB at tile 16384; a tail of
+    indices past the last whole tile; repeated and out-of-range rows."""
+    rng = np.random.default_rng(tile + nbuf + roww)
+    table = torch.from_numpy(rng.integers(0, 1 << 32, size=(4099, roww),
+                                          dtype=np.uint32).view(np.int32))
+    idx = rng.integers(0, 4099, size=3 * 16384 + 77, dtype=np.int32)
+    idx[::5] = idx[0]
+    idx[1::997] = -3
+    idx[2::991] = 4099
+    table, idx = table.to(dev), torch.from_numpy(idx).to(dev)
+    before = probe.LAUNCHES["row_gather_kernel"]
+    got = gather.row_gather_xor(table, idx, tile=tile, nbuf=nbuf)
+    want = gather.row_gather_xor_plain(table, idx, tile=tile, nbuf=nbuf)
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES["row_gather_kernel"] == before + 1
+    assert got.shape == ((idx.shape[0] // tile) * nbuf, roww)
+    assert torch.equal(got, want)
+
+
+def test_entry_cuda_equals_cpu(dev):
+    from strainscan_tpu_torch import entry
+
+    fn, args = entry.entry(dev)
+    got = fn(*args)
+    want_fn, want_args = entry.entry("cpu")
+    want = want_fn(*want_args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
 
 
 def _mesh_counts_equal_single_device(dev, mesh):

@@ -46,6 +46,11 @@ MODULES = [
     "strainscan_tpu_torch.parallel",
     "strainscan_tpu_torch.parallel.sharded",
     "strainscan_tpu_torch.parallel.distributed",
+    "strainscan_tpu_torch.entry",
+    "strainscan_tpu_torch.bench.count",
+    "strainscan_tpu_torch.bench.probe_study",
+    "strainscan_tpu_torch.ops.gather",
+    "strainscan_tpu_torch.timing",
 ]
 
 

@@ -106,7 +106,8 @@ def test_cpu_tensor_routes_to_plain_twin():
     want = probe.probe_prep_plain(codes, k=21, n_buckets=1 << 8, seed=1)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert probe.LAUNCHES == {"probe_prep_kernel": 0, "count_fp_kernel": 0,
-                              "count_exact_kernel": 0}
+                              "count_exact_kernel": 0,
+                              "row_gather_kernel": 0}
     with pytest.raises(ValueError):
         probe.probe_prep(codes.to(torch.int32), k=21, n_buckets=1 << 8,
                          seed=1)
