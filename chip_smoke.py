@@ -800,6 +800,8 @@ def phase_measure(dev, tag: str) -> dict:
     from strainscan_tpu_torch.bench import probe_study
     from strainscan_tpu_torch.ops import gather, probe
 
+    secs = {}
+    t0 = time.perf_counter()
     rng = np.random.default_rng(13)
     err = 0
     for roww in (64, 128):
@@ -817,6 +819,7 @@ def phase_measure(dev, tag: str) -> dict:
                   f"(roww={roww}, tile={tile}, nbuf={nbuf})")
             err = max(err, int((got.to(torch.int64) - want.to(torch.int64))
                                .abs().max()))
+    secs["parity"] = time.perf_counter() - t0
     log(f"[measure] row_gather_kernel bit-exact against its plain twin at "
         f"row widths 64 and 128, (tile, nbuf) in {probe_study.CONFIGS}, "
         f"{GATHER_W} indices into {GATHER_ROWS} rows [{tag}]")
@@ -825,9 +828,10 @@ def phase_measure(dev, tag: str) -> dict:
     t0 = time.perf_counter()
     study, _, _ = probe_study.gather_section(dev)
     launches = probe.LAUNCHES["row_gather_kernel"]
+    secs["study"] = time.perf_counter() - t0
     check(launches > 0, f"study path launches {dict(probe.LAUNCHES)}")
     log(f"[measure] probe_study gather section ({study['windows']} indices, "
-        f"{study['table_MB']} MB table) in {time.perf_counter() - t0} s, "
+        f"{study['table_MB']} MB table) in {secs['study']} s, "
         f"{launches} row_gather_kernel launches; torch gather-and-reduce "
         f"{study['xla_gather_Mrows_s_256B']} M rows/s (256 B), "
         f"{study['xla_gather_Mrows_s_512B']} (512 B) [{tag}]")
@@ -837,6 +841,7 @@ def phase_measure(dev, tag: str) -> dict:
                 f"plain {r['plain_ms']} ms per call, {r['Mrows_s']} M rows/s; "
                 f"every tile equal to the NumPy oracle [{tag}]")
 
+    t0 = time.perf_counter()
     fn, args = entry.entry(dev)
     got = fn(*args)
     want_fn, want_args = entry.entry("cpu")
@@ -844,14 +849,18 @@ def phase_measure(dev, tag: str) -> dict:
     sync(dev)
     check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
           "entry(cuda) != entry(cpu)")
+    secs["entry"] = time.perf_counter() - t0
     log(f"[measure] entry(cuda) equals entry(cpu): {int(got[0].sum())} hits, "
         f"moments and Gram exact")
 
+    t0 = time.perf_counter()
     res = bench_count.run(dev, tiers=[t for t in bench_count.TIERS
                                       if t[0] == "ecoli"], reps=1)
+    secs["bench.count"] = time.perf_counter() - t0
     check(res["metric"] == "kmer_match_reads_per_s_ecoli_scale"
           and res["value"] > 0, "bench.count result")
     log(f"[measure] bench.count ecoli tier, one rep: {json.dumps(res)}")
+    log(f"[measure] wall s per step {secs} [{tag}]")
     main512 = study["dma_gather_Mrows_s_512B"][STUDY_CONFIG]
     return dict(launches=launches, err=err, ms=main512["ms"],
                 plain_ms=main512["plain_ms"])
@@ -928,15 +937,24 @@ def main() -> int:
     shutil.rmtree(FIXTURE, ignore_errors=True)
     os.makedirs(FIXTURE)
 
-    phase_env(tag)
-    parity = phase_parity(dev, tag)
-    count = phase_count(dev, tag)
-    exact = phase_exact(dev, tag, count)
-    launches, ident = phase_identify(tag)
-    phase_scale(dev, tag, count, exact, ident)
-    measure = phase_measure(dev, tag)
-    phase_trace(tag, ident)
+    secs = {}
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    timed("env", phase_env, tag)
+    parity = timed("parity", phase_parity, dev, tag)
+    count = timed("count", phase_count, dev, tag)
+    exact = timed("exact", phase_exact, dev, tag, count)
+    launches, ident = timed("identify", phase_identify, tag)
+    timed("scale", phase_scale, dev, tag, count, exact, ident)
+    measure = timed("measure", phase_measure, dev, tag)
+    timed("trace", phase_trace, tag, ident)
     shutil.rmtree(FIXTURE, ignore_errors=True)
+    log(f"[time] wall s per phase {secs}, {sum(secs.values())} in all")
 
     ms = {**count["ms"], **exact["ms"]}
     src = "strainscan_tpu_torch/csrc/"

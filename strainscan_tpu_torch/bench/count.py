@@ -78,15 +78,21 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def synthesize(tmp: str, tag: str, genome_len: int,
-               n_reads: int) -> Tuple[np.ndarray, str]:
+def synthesize(tmp: str, tag: str, genome_len: int, n_reads: int,
+               device="cpu") -> Tuple[np.ndarray, str]:
     """bench.py's inputs, byte for byte: a seeded random genome's sorted
     both-strand k-mers and a fixed-width FASTQ of ``n_reads`` reads drawn
-    from it, half reverse-complemented.  Returns ``(keys, fastq path)``."""
+    from it, half reverse-complemented.  Returns ``(keys, fastq path)``.
+
+    The keys are sorted and deduplicated on ``device`` (a GPU does 28.6 M
+    in well under a second; a host ``np.unique`` can take a minute).  A
+    31-mer packs into 62 bits, so the int64 order is the uint64 order."""
     rng = np.random.default_rng(0)
     genome_codes = rng.integers(0, 4, size=genome_len).astype(np.uint8)
     km, _ = pack.pack_kmers(genome_codes, K)
-    db = np.unique(np.concatenate([km, pack.revcomp_packed(km, K)]))
+    both = np.concatenate([km, pack.revcomp_packed(km, K)]).view(np.int64)
+    db = torch.unique(torch.from_numpy(both).to(device)).cpu().numpy() \
+        .view(np.uint64)
     fq = os.path.join(tmp, f"bench_{tag}.fq")
     starts = rng.integers(0, genome_len - READ_LEN, size=n_reads)
     reads = genome_codes[starts[:, None] + np.arange(READ_LEN)[None, :]]
@@ -118,13 +124,14 @@ def host_window_keys(codes: np.ndarray, k: int = K):
     return key, (bad[:, k:] - bad[:, :-k]) == 0
 
 
-def check_host_oracle(table: KmerTable, dev: torch.device,
+def check_host_oracle(pipe: CountPipeline, table: KmerTable,
                       batch: np.ndarray) -> int:
-    """One batch through a fresh pipeline equals ``KmerTable.lookup_host``
-    + bincount in id space; returns the batch's hits."""
-    one = CountPipeline(table, dev)
-    one.add_batch(batch)
-    got = one.finish()
+    """One batch through the pipeline, reset first, equals
+    ``KmerTable.lookup_host`` + bincount in id space; returns the batch's
+    hits."""
+    pipe.reset()
+    pipe.add_batch(batch)
+    got = pipe.finish()
     keys, valid = host_window_keys(batch, table.k)
     ids = table.lookup_host(keys[valid])
     want = np.bincount(ids[ids >= 0], minlength=table.n_keys)
@@ -174,10 +181,13 @@ def bench_ours(db: np.ndarray, fq: str, n_reads: int, dev: torch.device,
     if (counts % passes).any():
         raise RuntimeError(f"a {passes}-fold stream must count every key a "
                            f"multiple of {passes} times")
-    hits = check_host_oracle(table, dev, first)
+    t0 = time.perf_counter()
+    hits = check_host_oracle(pipe, table, first)
     log(f"triple-stream check held; the first batch equals the host oracle "
-        f"({hits} hits)")
+        f"({hits} hits; checked in {time.perf_counter() - t0} s)")
+    t0 = time.perf_counter()
     bd = breakdown(pipe, fq, first, n_reads)
+    log(f"breakdown measured in {time.perf_counter() - t0} s")
     bd["finish_s"] = finish_times
     return n_streamed / float(np.median(times)), counts // passes, times, bd
 
@@ -275,8 +285,10 @@ def run_tier(tmp: str, tag: str, genome_len: int, n_reads: int,
              jellyfish: Optional[str]) -> dict:
     log(f"=== tier {tag}: synthesizing (genome {genome_len} bp, {n_reads} "
         f"reads)")
-    db, fq = synthesize(tmp, tag, genome_len, n_reads)
-    log(f"tier {tag}: {db.size} table keys")
+    t0 = time.perf_counter()
+    db, fq = synthesize(tmp, tag, genome_len, n_reads, dev)
+    log(f"tier {tag}: {db.size} table keys, synthesized in "
+        f"{time.perf_counter() - t0} s")
     rps, counts, times, bd = bench_ours(db, fq, n_reads, dev, reps, passes)
     detail = {"n_keys": int(db.size), "n_reads": n_reads,
               "ours_reads_s": rps, "ours_times_s": times, "breakdown": bd,
