@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
+Before the first phase the process refuses every import of jax and of the
+JAX package (strainscan_tpu), so the run proves the port stands alone.
+
 Phases (any failure raises and exits non-zero; nothing is passed over):
 
 1. Environment: card name and power limit, torch/CUDA/nvcc versions; build
    the CUDA kernels from csrc/*.cu and time the build.
 2. Kernel parity on the card, bit-exact against the plain twins:
    probe_prep_kernel on random codes with ~5 % N (B = 65,536, L in
-   {150, 256}, k in {31, 21, 16, 15}, canonical on and off); count_fp_kernel
+   {150, 256}, k in {31, 21, 16, 15}, canonical on and off); count_fp, and
+   each of its four binned kernels (fp_bin_count_kernel, bin_scan_kernel,
+   fp_bin_scatter_kernel, fp_bin_probe_kernel; ops.probe.fp_bin_parity),
    on a random table with vlen, vbytes and raw codes payloads;
    count_exact_kernel on a random KmerTable at load 0.9 (so windows probe
    past their home row) with vbytes and codes payloads, canonical on and
@@ -24,9 +29,17 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    same reads against the 28.6 M-key KmerTable (2^24 buckets x 96 B on the
    card): equal to count_exact_plain over the stream and to
    KmerTable.lookup_host + bincount on one batch; the ids where it differs
-   from the fp counts (fingerprint strays) are counted.  Times: end-to-end
-   reads/s of both modes, and each kernel against its plain twin at
-   B = 65,536 x L = 150 (CUDA events, plain-kernel-kernel-plain).
+   from the fp counts (fingerprint strays) are counted.  Times (CUDA
+   events, in turns): end-to-end reads/s of both modes; probe_prep_kernel
+   and count_exact_kernel against their plain twins at B = 65,536 x
+   L = 150; count_fp at identify's shape (65,536 reads of 150 bp padded to
+   L = 256, vlen) and at L = 150, the binned design against the one-kernel
+   count_fp_kernel and the plain twin, each binned kernel held against its
+   twin there and timed alone.  Every kernel's bound (bytes each read or
+   written once over 3.35 TB/s, or integer operations over 67 T/s) comes
+   from this run's data: the distinct table rows and count sectors the
+   windows touch.  The launches of each kernel per 1.2 M-read sample are
+   counted.
 4. End-to-end identify through the CLI entry point on a synthetic DB:
    single-strain, cross-cluster and intra-cluster (Enet) samples with
    ``identify`` and then ``batch-identify`` on the GPU, once more in a
@@ -40,8 +53,8 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    shard_min_kmers=1) over phase 3's reads must equal phase 3's
    single-device counts; phase 4's samples identified on the mesh with
    shard_min_kmers=1, shard_min_l2_rows=1 must give reports byte-identical
-   to phase 4's GPU reports, with count_fp_kernel launched once per mesh
-   position per batch; and a 2-process gloo run of ``batch-identify`` on
+   to phase 4's GPU reports, with fp_bin_probe_kernel launched once per
+   mesh position per batch; and a 2-process gloo run of ``batch-identify`` on
    the same card (torchrun's variables set by hand) must give
    byte-identical reports too.
 6. The measurement path.  row_gather_kernel (the port of the Pallas
@@ -54,11 +67,12 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    entry("cpu"); bench.count's ecoli tier with one rep (its
    triple-stream and host-oracle checks held); and the trace hook: a build
    and a GPU identify through the CLI with STRAINSCAN_TRACE_DIR set write
-   one torch.profiler trace per phase, the count's with count_fp_kernel's
-   device events, and reports byte-identical to an untraced run.
+   one torch.profiler trace per phase, the count's with
+   fp_bin_probe_kernel's device events, and reports byte-identical to an
+   untraced run.
 
 Each path's launch counters are set to 0 just before it and read just
-after: the main path (phase 4's GPU identify) for count_fp_kernel, the
+after: the main path (phase 4's GPU identify) for count_fp's kernels, the
 exact-mode count of phase 3 for count_exact_kernel, the study's gather
 section of phase 6 for row_gather_kernel.  probe_prep_kernel is
 the standalone parity seam of the Pallas probe_prep, on no path (its hash
@@ -71,7 +85,10 @@ and 5 keep the count at the full 28.6 M-key table; phase 6 runs bench.count's
 ecoli tier with one rep of its three passes (bench.count runs five).
 
 Prints progress with the card's name and power limit beside every number,
-then the card line, a JSON line of the kernels, and as the last line
+then the card line, a JSON line of the kernels (each with its launches on
+its path and per sample, max_abs_err, ms, plain_ms, bound_ms, bound_by and
+library_ms: null, as no single PyTorch call computes any of them), and as
+the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero with no result when
 ``torch.cuda.is_available()`` is false or the port is not beside the script.
 Writes its fixtures under .smoke/ and removes them at the end.
@@ -112,7 +129,34 @@ GPU = "cuda"   # the --device of the GPU runs
 # and the study configuration the kernels line reports
 GATHER_ROWS, GATHER_W = 1 << 18, (1 << 20) + 1000
 STUDY_CONFIG = "tile2048_nbuf16"
+# the binned count_fp: its kernels in launch order
+FP_KERNELS = ("fp_bin_count_kernel", "bin_scan_kernel",
+              "fp_bin_scatter_kernel", "fp_bin_probe_kernel")
+# integer operations per hashed window: four fmix32 of 8 operations, the
+# seed and constant XORs, and the rolling forward and reverse keys
+HASH_OPS = 44
 
+
+
+def block_jax_package() -> None:
+    """Refuse every import of jax and of the JAX package (strainscan_tpu,
+    not the port) in this process, so the run proves the port stands
+    alone."""
+    import importlib.abc
+
+    def blocked(name: str) -> bool:
+        return (name in ("jax", "jaxlib", "strainscan_tpu")
+                or name.startswith(("jax.", "jaxlib.", "strainscan_tpu.")))
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ImportError(f"{name} is blocked: the port stands alone")
+            return None
+
+    for name in [m for m in sys.modules if blocked(m)]:
+        del sys.modules[name]
+    sys.meta_path.insert(0, Block())
 
 
 def check(cond, msg: str) -> None:
@@ -176,6 +220,13 @@ def cuda_ms(fn, iters: int) -> float:
     from strainscan_tpu_torch.bench import cuda_ms as timed
 
     return timed(fn, iters)
+
+
+def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple:
+    """(least ms the card could take, "bytes" or "operations")."""
+    from strainscan_tpu_torch.bench import bound_ms as bound
+
+    return bound(n_bytes, n_ops)
 
 
 # -------------------------------------------------------------- phases
@@ -256,12 +307,15 @@ def phase_parity(dev, tag: str) -> dict:
         kw = dict(length=156, k=K, seed=fpt.seed, **valid)
         probe.count_fp(c1, words, table.fp, **kw)
         probe.count_fp_plain(c2, words, table.fp, **kw)
+        stage = probe.fp_bin_parity(words, table.fp, **kw)
         sync(dev)
         check(torch.equal(c1, c2), f"count_fp {name} != plain")
-        errs["count_fp_kernel"] = max(errs["count_fp_kernel"], err(c1, c2))
-        log(f"[parity] count_fp_kernel {name}: bit-exact, "
-            f"{int(c1[:-1].sum())} hits, {int(c1[-1])} trash "
-            f"(table {fpt.n_keys} keys) [{tag}]")
+        check(not any(stage.values()), f"binned kernels {name}: {stage}")
+        for kname, e in stage.items():
+            errs[kname] = max(errs[kname], e, err(c1, c2))
+        log(f"[parity] count_fp ({', '.join(FP_KERNELS)}) {name}: each "
+            f"kernel and the whole bit-exact, {int(c1[:-1].sum())} hits, "
+            f"{int(c1[-1])} trash (table {fpt.n_keys} keys) [{tag}]")
 
     kt = KmerTable.build(keys, k=K, load_factor=0.9)
     ktab = kmer_table_to_device(kt, dev)
@@ -289,9 +343,10 @@ def phase_parity(dev, tag: str) -> dict:
                 f"bit-exact, {int(c1[:-1].sum())} hits, {int(c1[-1])} trash "
                 f"(table {kt.n_keys} keys, max_probe {kt.max_probe}) [{tag}]")
     launches = dict(probe.LAUNCHES)
-    check(launches == {"probe_prep_kernel": n_probe, "count_fp_kernel": 3,
-                       "count_exact_kernel": 4, "row_gather_kernel": 0},
-          f"parity launches {launches}")
+    want = dict.fromkeys(launches, 0)
+    want.update({"probe_prep_kernel": n_probe, "count_exact_kernel": 4,
+                 **dict.fromkeys(FP_KERNELS, 6)})   # count_fp + the parity
+    check(launches == want, f"parity launches {launches}")
     log(f"[parity] kernel launches {launches}")
     return {name: (errs[name], launches[name]) for name in errs}
 
@@ -315,6 +370,7 @@ def phase_count(dev, tag: str) -> dict:
     reads), the id-space counts and the kernel and plain timings in ms."""
     import torch
 
+    from strainscan_tpu_torch.config import IdentifyConfig
     from strainscan_tpu_torch.identify.count import (count_sample,
                                                      iter_payloads)
     from strainscan_tpu_torch.ops import probe
@@ -344,11 +400,12 @@ def phase_count(dev, tag: str) -> dict:
     times = []
     ids = None
     for rep in range(COUNT_REPS):
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        sync(dev)
+        probe.reset_launches()
         t0 = time.perf_counter()
         got = count_sample(fpt, fq, dev)
         times.append(time.perf_counter() - t0)
+        launches_per_sample = dict(probe.LAUNCHES)
         check(ids is None or np.array_equal(got, ids), "repeat count differs")
         ids = got
         log(f"[count] rep {rep}: {times[-1]} s, "
@@ -356,6 +413,11 @@ def phase_count(dev, tag: str) -> dict:
             f"({'cold: includes the table upload' if rep == 0 else 'warm'}) "
             f"[{tag}]")
     check(ids.sum() > 0.8 * n_hit * (READ_LEN - K + 1), "too few hits")
+    n_batches = -(-N_READS // IdentifyConfig().read_batch)
+    check(all(launches_per_sample[n] == n_batches for n in FP_KERNELS),
+          f"launches per sample {launches_per_sample}")
+    log(f"[count] kernel launches per {N_READS}-read sample "
+        f"{launches_per_sample}")
 
     # the plain PyTorch path on the same payloads, on the same device
     pipe = CountPipeline(fpt, dev)
@@ -392,35 +454,162 @@ def phase_count(dev, tag: str) -> dict:
     log(f"[count] one batch equals the host oracle ({wkeys.size} windows, "
         f"{int((slots >= 0).sum())} hits)")
 
-    # kernel against the plain twin at B = 65,536 x L = 150
-    (payload,) = CountPipeline(fpt, dev).prepare_batch(reads[:BATCH])
-    words, valid_t = payload[1].to(dev), payload[2].to(dev)
-    kw = dict(length=READ_LEN, k=K, seed=fpt.seed, **{payload[0]: valid_t})
-    scratch = torch.zeros_like(pipe.counts)
+    # probe_prep_kernel against its plain twin at B = 65,536 x L = 150
     codes = torch.from_numpy(np.ascontiguousarray(reads[:BATCH])).to(dev)
     pkw = dict(k=K, n_buckets=fpt.n_buckets, seed=fpt.seed)
-    ms = {"count_fp": [], "count_plain": [], "prep": [], "prep_plain": []}
+    ms = {"prep": [], "prep_plain": []}
     for order in ("plain", "kernel", "kernel", "plain"):
         if order == "kernel":
-            ms["count_fp"].append(cuda_ms(
-                lambda: probe.count_fp(scratch, words, table.fp, **kw), 20))
             ms["prep"].append(cuda_ms(
                 lambda: probe.probe_prep(codes, **pkw), 20))
         else:
-            ms["count_plain"].append(cuda_ms(
-                lambda: probe.count_fp_plain(scratch, words, table.fp, **kw),
-                3))
             ms["prep_plain"].append(cuda_ms(
                 lambda: probe.probe_prep_plain(codes, **pkw), 3))
-    windows = BATCH * (READ_LEN - K + 1)
-    k_ms = min(ms["count_fp"])
-    log(f"[count] count_fp_kernel {ms['count_fp']} ms vs plain "
-        f"{ms['count_plain']} ms per batch of {BATCH} x {READ_LEN} "
-        f"({payload[0]}); kernel {windows / (k_ms / 1e3)} windows/s "
-        f"[{tag}]")
     log(f"[count] probe_prep_kernel {ms['prep']} ms vs plain "
         f"{ms['prep_plain']} ms per batch of {BATCH} x {READ_LEN} [{tag}]")
-    return dict(keys=keys, fpt=fpt, fq=fq, reads=reads, ids=ids, ms=ms)
+    m = READ_LEN - K + 1
+    prep_bound = bound_ms(BATCH * READ_LEN + BATCH * m * 8,
+                          BATCH * m * HASH_OPS)
+    fp = time_count_fp(dev, tag, fpt, table, reads[:BATCH])
+    return dict(keys=keys, fpt=fpt, fq=fq, reads=reads, ids=ids, ms=ms,
+                prep_bound=prep_bound, fp=fp,
+                launches_per_sample=launches_per_sample)
+
+
+def time_count_fp(dev, tag: str, fpt, table, reads: np.ndarray) -> dict:
+    """count_fp at identify's shape (the reads padded to L = MAXLEN, vlen)
+    and at L = 150: each binned kernel against its plain twin, then the
+    whole count, binned (global or shared-memory count atomics), against
+    the one-kernel design and the plain twin, in turns; each kernel's time
+    alone and its bound at identify's shape.  Returns the numbers."""
+    import torch
+
+    from strainscan_tpu_torch.index.hashtable import lookup_fp_from_prep
+    from strainscan_tpu_torch.ops import probe
+    from strainscan_tpu_torch.ops.count import CountPipeline
+
+    out = {}
+    n_buckets, bucket = table.fp.shape
+    for length in (MAXLEN, READ_LEN):
+        padded = np.full((reads.shape[0], length), 4, np.uint8)
+        padded[:, :READ_LEN] = reads
+        (payload,) = CountPipeline(fpt, dev).prepare_batch(padded)
+        check(payload[0] == "vlen", f"payload form {payload[0]}")
+        words, vlen = payload[1].to(dev), payload[2].to(dev)
+        kw = dict(length=length, k=K, seed=fpt.seed, vlen=vlen)
+        errs = probe.fp_bin_parity(words, table.fp, **kw)
+        check(not any(errs.values()), f"binned kernels at L={length}: "
+              f"{errs}")
+        counts = torch.zeros(fpt.n_slots + 1, dtype=torch.int32, device=dev)
+        scratch = probe.FpScratch()
+        outs = []
+        for fn in (probe.count_fp_plain, probe.count_fp_rowwise,
+                   probe.count_fp):
+            counts.zero_()
+            fn(counts, words, table.fp, **kw)
+            outs.append(counts.clone())
+        check(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2]),
+              f"count_fp designs disagree at L={length}")
+        fns = {
+            "plain": (lambda: probe.count_fp_plain(counts, words, table.fp,
+                                                   **kw), 3),
+            "rowwise": (lambda: probe.count_fp_rowwise(
+                counts, words, table.fp, **kw), 20),
+            "binned": (lambda: probe.count_fp(
+                counts, words, table.fp, scratch=scratch, **kw), 20)}
+        ms = {name: [] for name in fns}
+        for name in ("plain", "rowwise", "binned", "binned", "rowwise",
+                     "plain"):
+            fn, iters = fns[name]
+            ms[name].append(cuda_ms(fn, iters))
+        log(f"[count] count_fp at {reads.shape[0]} x {length} (vlen, "
+            f"{READ_LEN} bp reads): binned {ms['binned']} ms, one-kernel "
+            f"count_fp_kernel {ms['rowwise']} ms, plain {ms['plain']} ms "
+            f"[{tag}]")
+        out[length] = dict(ms=ms, errs=errs)
+
+    # each kernel alone at identify's shape, and the bounds from this
+    # batch's data: the valid windows, the distinct rows they probe and the
+    # distinct 32 B count sectors their hits touch
+    length = MAXLEN
+    shift = probe.fp_bin_shift(n_buckets, bucket)
+    n_bins = n_buckets >> shift
+    n_blocks, per = probe.fp_bin_blocks(reads.shape[0], dev)
+    bc, bs, bb, pairs = scratch.buffers(dev, n_bins, n_blocks,
+                                        reads.shape[0] * (length - K + 1))
+    probe.count_fp(counts, words, table.fp, scratch=scratch, **kw)
+    n_valid = int(bs[-1])
+    p = pairs[:n_valid]
+    slots = lookup_fp_from_prep(table.fp, p[:, 1], p[:, 0], bucket)
+    hit = slots >= 0
+    rows = int(torch.unique(p[:, 1]).numel())
+    sectors = int(torch.unique(slots[hit] // 8).numel())
+    lanes = (slots[hit] % bucket + 1).sum()
+    compares = int(lanes) + bucket * int((~hit).sum())
+    payload_b = words.numel() * 4 + vlen.numel() * 2
+    rows_b, cnt_b = rows * bucket * 4, sectors * 32 * 2 + 8
+    bins_b = n_bins * 4
+    skw = dict(kw, n_buckets=n_buckets, shift=shift, rows_per_block=per)
+    stages = {  # wrapper, plain twin, bytes, operations
+        "fp_bin_probe_kernel": (
+            lambda: probe.fp_bin_probe(counts, pairs, bs, table.fp,
+                                       shift=shift),
+            lambda: probe.fp_bin_probe_plain(counts, pairs, bs, table.fp,
+                                             shift=shift),
+            n_valid * 8 + bins_b + 4 + rows_b + cnt_b, compares),
+        "fp_bin_scatter_kernel": (
+            lambda: probe.fp_bin_scatter(pairs, bs, bb, words, **skw),
+            lambda: probe.fp_bin_scatter_plain(pairs, bs, bb, words, **skw),
+            payload_b + bins_b + 4 + n_blocks * bins_b + n_valid * 8,
+            n_valid * HASH_OPS),
+        "fp_bin_count_kernel": (   # bin totals zeroed again after each
+            lambda: (probe.fp_bin_count(bc, bb, counts, words, **skw),
+                     bc.zero_()),
+            lambda: (probe.fp_bin_count_plain(bc, bb, counts, words, **skw),
+                     bc.zero_()),
+            payload_b + 2 * bins_b + n_blocks * bins_b + 8,
+            n_valid * HASH_OPS),
+        "bin_scan_kernel": (
+            lambda: probe.bin_scan(bc, bs),
+            lambda: probe.bin_scan_plain(bc, bs),
+            3 * bins_b + 4, n_bins)}
+    stage_ms = {}
+    for name, (fn, plain, n_bytes, n_ops) in stages.items():
+        k_ms = [cuda_ms(fn, 20)]
+        p_ms = cuda_ms(plain, 3)
+        k_ms.append(cuda_ms(fn, 20))
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        stage_ms[name] = dict(ms=min(k_ms), plain_ms=p_ms, bound_ms=b_ms,
+                              bound_by=by, bytes=n_bytes)
+        log(f"[count] {name} alone at {reads.shape[0]} x {length}: "
+            f"{k_ms} ms vs plain {p_ms} ms, bound {b_ms} ms by {by} "
+            f"({n_bytes} B) [{tag}]")
+    # the count and scatter kernels' blocks per multiprocessor: with one
+    # wave of blocks the scatter's pair writes span the whole pairs buffer
+    sweep = {}
+    chosen = probe.BLOCKS_PER_SM
+    try:
+        for bps in (1, 4, chosen):
+            probe.BLOCKS_PER_SM = bps
+            sweep[bps] = cuda_ms(lambda: probe.count_fp(
+                counts, words, table.fp, scratch=probe.FpScratch(), **kw), 20)
+    finally:
+        probe.BLOCKS_PER_SM = chosen
+    log(f"[count] count_fp at {reads.shape[0]} x {length} by blocks per SM "
+        f"of its count and scatter kernels: {sweep} ms [{tag}]")
+    whole_b = payload_b + rows_b + cnt_b
+    whole_ms, whole_by = bound_ms(whole_b, n_valid * HASH_OPS + compares)
+    binned = min(out[length]["ms"]["binned"])
+    log(f"[count] count_fp bound at {reads.shape[0]} x {length}: "
+        f"{whole_ms} ms by {whole_by} ({whole_b} B: payload {payload_b}, "
+        f"{rows} distinct rows of {bucket * 4} B, {sectors} count sectors "
+        f"read and written; {n_valid} valid windows); binned "
+        f"{binned} ms = {whole_ms / binned} of the bound; one-kernel "
+        f"{min(out[length]['ms']['rowwise'])} ms [{tag}]")
+    return dict(designs=out, stages=stage_ms, bound_ms=whole_ms,
+                bound_by=whole_by, bytes=whole_b)
+
+
 
 
 def phase_exact(dev, tag: str, ctx: dict) -> dict:
@@ -520,7 +709,37 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
         f"{ms['count_exact_plain']} ms per batch of {BATCH} x {READ_LEN} "
         f"({payload[0]}); kernel {windows / (min(ms['count_exact']) / 1e3)} "
         f"windows/s [{tag}]")
-    return dict(ids=ids, launches=launches, ms=ms)
+    bound = exact_bound(kt, reads[:BATCH],
+                        words.numel() * 4 + valid_t.numel())
+    log(f"[exact] count_exact_kernel bound {bound[0]} ms by {bound[1]} "
+        f"({bound[2]} B) [{tag}]")
+    return dict(ids=ids, launches=launches, ms=ms, bound=bound,
+                per_sample=launches // COUNT_REPS)
+
+
+def exact_bound(kt, codes: np.ndarray, payload_b: int) -> tuple:
+    """(ms, bound_by, bytes) of count_exact on one batch: the payload, each
+    96 B table row its windows must read (home row on to the row that holds
+    the key; all max_probe rows for a miss) and each 32 B id-count sector
+    its hits touch, read and written."""
+    from strainscan_tpu_torch.index.hashtable import mix_np
+
+    keys, valid = host_window_keys(codes)
+    q = keys[valid]
+    hi = (q >> np.uint64(32)).astype(np.uint32)
+    lo = (q & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    home = mix_np(hi, lo).astype(np.int64) & (kt.n_buckets - 1)
+    ids = kt.lookup_host(q)
+    occ = np.nonzero(kt.val >= 0)[0]
+    row_of_id = np.empty(kt.n_keys, np.int64)
+    row_of_id[kt.val[occ]] = occ // 8
+    need = np.where(ids >= 0, (row_of_id[np.maximum(ids, 0)] - home)
+                    % kt.n_buckets + 1, kt.max_probe)
+    rows = np.unique(np.concatenate([(home[need > p] + p) % kt.n_buckets
+                                     for p in range(kt.max_probe)]))
+    sectors = np.unique(ids[ids >= 0] // 8).size
+    n_bytes = payload_b + rows.size * 96 + sectors * 64 + 8
+    return (*bound_ms(n_bytes, q.size * HASH_OPS), n_bytes)
 
 
 def synth_db_inputs(rng):
@@ -602,7 +821,8 @@ def phase_identify(tag: str):
     probe.reset_launches()
     run(GPU)
     launches = dict(probe.LAUNCHES)
-    check(launches["count_fp_kernel"] > 0, f"main path launches {launches}")
+    check(all(launches[n] > 0 for n in FP_KERNELS),
+          f"main path launches {launches}")
     t = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "strainscan_tpu_torch.cli", "identify", "-i",
@@ -718,7 +938,7 @@ def phase_scale(dev, tag: str, count: dict, exact: dict,
         ids = icount.count_sample(count["fpt"], count["fq"], mesh, cfg,
                                   keys=keys)
         dt = time.perf_counter() - t0
-        launched = probe.LAUNCHES["count_fp_kernel"]
+        launched = probe.LAUNCHES["fp_bin_probe_kernel"]
         check(launched > 0 and launched % mesh.size == 0,
               f"sharded pipeline launches {dict(probe.LAUNCHES)}")
         check(np.array_equal(ids, count["ids"]),
@@ -726,7 +946,7 @@ def phase_scale(dev, tag: str, count: dict, exact: dict,
         log(f"[scale] sharded count_sample rep {rep}: equal to the "
             f"single-device counts, {dt} s, {N_READS / dt} reads/s end to "
             f"end ({'cold: includes the sharded fp build and uploads' if rep == 0 else 'warm: cached pipeline'}), "
-            f"{launched} count_fp_kernel launches [{tag}]")
+            f"{launched} fp_bin_probe_kernel launches [{tag}]")
     icount._SHARDED_CACHE.clear()
 
     db, samples, out = ident["db"], ident["samples"], ident["out"]
@@ -741,7 +961,7 @@ def phase_scale(dev, tag: str, count: dict, exact: dict,
                            os.path.join(out, "mesh", name), mesh, cfg)
               is not None, f"mesh identify {name}")
         secs.append(time.perf_counter() - t0)
-    launched = probe.LAUNCHES["count_fp_kernel"]
+    launched = probe.LAUNCHES["fp_bin_probe_kernel"]
     check(launched > 0 and launched % mesh.size == 0
           and all(p.mesh is mesh for _, _, p in icount._SHARDED_CACHE),
           f"mesh identify did not run the sharded pipeline: "
@@ -751,7 +971,7 @@ def phase_scale(dev, tag: str, count: dict, exact: dict,
                   for n in names)
     log(f"[scale] sharded identify (shard_min_kmers=1, shard_min_l2_rows=1) "
         f"of {names}: {n_files} report files byte-identical to the "
-        f"single-device GPU run; {launched} count_fp_kernel launches; "
+        f"single-device GPU run; {launched} fp_bin_probe_kernel launches; "
         f"s/sample {secs} [{tag}]")
     icount._SHARDED_CACHE.clear()
 
@@ -862,14 +1082,22 @@ def phase_measure(dev, tag: str) -> dict:
     log(f"[measure] bench.count ecoli tier, one rep: {json.dumps(res)}")
     log(f"[measure] wall s per step {secs} [{tag}]")
     main512 = study["dma_gather_Mrows_s_512B"][STUDY_CONFIG]
+    tile, nbuf = (int(x) for x in STUDY_CONFIG[4:].split("_nbuf"))
+    n = study["windows"]
+    n_bytes = (study["rows_touched_512B"] * 512 + n * 4
+               + (n // tile) * nbuf * 512)
+    bound = bound_ms(n_bytes, n * 128)
+    log(f"[measure] row_gather_kernel bound {bound[0]} ms by {bound[1]} "
+        f"({n_bytes} B: {study['rows_touched_512B']} distinct 512 B rows, "
+        f"the indices, the folds) [{tag}]")
     return dict(launches=launches, err=err, ms=main512["ms"],
-                plain_ms=main512["plain_ms"])
+                plain_ms=main512["plain_ms"], bound=bound)
 
 
 def phase_trace(tag: str, ident: dict) -> None:
     """The trace hook on the card: a build and a GPU identify through the
     CLI with STRAINSCAN_TRACE_DIR set write one torch.profiler trace per
-    phase (identify/count's holding count_fp_kernel's device events), with
+    phase (identify/count's holding fp_bin_probe_kernel's device events), with
     reports byte-identical to an untraced run."""
     from strainscan_tpu_torch import cli
     from strainscan_tpu_torch.timing import TRACE_ENV, trace_path
@@ -899,17 +1127,18 @@ def phase_trace(tag: str, ident: dict) -> None:
     same_reports(os.path.join(out, "traced"), os.path.join(out, "untraced"),
                  "traced identify")
     sizes = {}
-    for name in ("build", "identify/load_db", "identify/count",
-                 "identify/cst_search", "identify/l2_vote"):
+    for name in ("clustering", "distance_matrix", "l2_matrices",
+                 "overlap_matrices", "tree_build", "identify/load_db",
+                 "identify/count", "identify/cst_search", "identify/l2_vote"):
         path = trace_path(trace_dir, name)
         check(os.path.isfile(path), f"no trace {path}")
         sizes[name] = os.path.getsize(path)
     with open(trace_path(trace_dir, "identify/count")) as fh:
-        check("count_fp_kernel" in fh.read(),
-              "identify/count's trace holds no count_fp_kernel event")
+        check("fp_bin_probe_kernel" in fh.read(),
+              "identify/count's trace holds no fp_bin_probe_kernel event")
     log(f"[trace] STRAINSCAN_TRACE_DIR: traced build and GPU identify wrote "
         f"one trace per phase (bytes {sizes}), identify/count's with "
-        f"count_fp_kernel device events; reports byte-identical to the "
+        f"fp_bin_probe_kernel device events; reports byte-identical to the "
         f"untraced run; s {secs} [{tag}]")
 
 
@@ -928,12 +1157,23 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    block_jax_package()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from strainscan_tpu_torch.bench import card_line
 
     tag = card_line()
-    dev = torch.device("cuda", 0)
+    kernels = run(torch.device("cuda", 0), tag)
+    print(tag)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run(dev, tag: str) -> list:
+    """Every phase on ``dev``; returns the kernels line's entries."""
     shutil.rmtree(FIXTURE, ignore_errors=True)
     os.makedirs(FIXTURE)
 
@@ -956,44 +1196,63 @@ def main() -> int:
     shutil.rmtree(FIXTURE, ignore_errors=True)
     log(f"[time] wall s per phase {secs}, {sum(secs.values())} in all")
 
-    ms = {**count["ms"], **exact["ms"]}
     src = "strainscan_tpu_torch/csrc/"
+    fp = count["fp"]
+    per_sample = count["launches_per_sample"]
     kernels = [{
         "name": "probe_prep_kernel", "route": "cuda",
         "source": src + "probe_count.cu",
         "replaces": "strainscan_tpu/ops/pallas_probe.py:168",
         "launches": launches["probe_prep_kernel"],
+        "launches_per_sample": per_sample["probe_prep_kernel"],
         "parity_launches": parity["probe_prep_kernel"][1],
         "max_abs_err": parity["probe_prep_kernel"][0],
-        "ms": min(ms["prep"]), "plain_ms": min(ms["prep_plain"]),
-    }, {
-        "name": "count_fp_kernel", "route": "cuda",
-        "source": src + "probe_count.cu",
-        "replaces": "strainscan_tpu/ops/pallas_probe.py:168",
-        "launches": launches["count_fp_kernel"],
-        "max_abs_err": parity["count_fp_kernel"][0],
-        "ms": min(ms["count_fp"]), "plain_ms": min(ms["count_plain"]),
-    }, {
+        "ms": min(count["ms"]["prep"]),
+        "plain_ms": min(count["ms"]["prep_plain"]),
+        "bound_ms": count["prep_bound"][0],
+        "bound_by": count["prep_bound"][1], "library_ms": None,
+    }]
+    for name in FP_KERNELS:   # the four kernels of the binned count_fp
+        st = fp["stages"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "count_fp_bins.cu",
+            "replaces": "strainscan_tpu/ops/pallas_probe.py:168",
+            "part_of": "count_fp",
+            "launches": launches[name],
+            "launches_per_sample": per_sample[name],
+            "max_abs_err": max(parity[name][0],
+                               *(d["errs"][name]
+                                 for d in fp["designs"].values())),
+            "ms": st["ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "library_ms": None})
+    kernels += [{
         "name": "count_exact_kernel", "route": "cuda",
         "source": src + "count_exact.cu",
         "replaces": "strainscan_tpu/ops/count.py:32",
         "launches": exact["launches"],
+        "launches_per_sample": exact["per_sample"],
         "max_abs_err": parity["count_exact_kernel"][0],
-        "ms": min(ms["count_exact"]), "plain_ms": min(ms["count_exact_plain"]),
+        "ms": min(exact["ms"]["count_exact"]),
+        "plain_ms": min(exact["ms"]["count_exact_plain"]),
+        "bound_ms": exact["bound"][0], "bound_by": exact["bound"][1],
+        "library_ms": None,
     }, {
         "name": "row_gather_kernel", "route": "cuda",
         "source": src + "row_gather.cu",
         "replaces": "benchmarks/probe_bench3.py:142",
-        "launches": measure["launches"],
+        "launches": measure["launches"], "launches_per_sample": 0,
         "max_abs_err": measure["err"],
         "ms": measure["ms"], "plain_ms": measure["plain_ms"],
+        "bound_ms": measure["bound"][0], "bound_by": measure["bound"][1],
+        "library_ms": None,
     }]
-    print(tag)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    designs = {length: {name: min(v) for name, v in d["ms"].items()}
+               for length, d in fp["designs"].items()}
+    log(f"[count] count_fp per batch of {BATCH} reads, ms by design and L: "
+        f"{json.dumps(designs)}; bound at L = {MAXLEN} {fp['bound_ms']} ms "
+        f"by {fp['bound_by']} ({fp['bytes']} B) [{tag}]")
+    return kernels
 
 
 if __name__ == "__main__":

@@ -6,10 +6,13 @@ explicit device; the k-mer count hot path runs in CUDA C++ kernels written
 for Hopper (``csrc/probe_count.cu``), each with a plain PyTorch twin that a
 CPU tensor is routed to.
 
-The package imports ``torch`` and never ``jax``.  From ``strainscan_tpu`` it
-imports only host modules that import no jax: ``config``, ``io.fastx``,
-``kmer.pack``, ``index.hashtable``, ``native``, ``utils.prefetch``,
-``build.*``, ``identify.cst_search`` and ``identify.low_depth``.
+The package imports ``torch`` and never ``jax``, and nothing of
+``strainscan_tpu``: it owns copies of the host modules it runs (``config``,
+``io.fastx``, ``kmer.pack``, the host half of ``index.hashtable``,
+``native``, ``utils.prefetch``, ``utils.trees``, ``build.*``,
+``identify.cst_search`` and ``identify.low_depth``), each at the same
+relative path as its original, and builds a DB byte-identical to the JAX
+package's.
 """
 
 __version__ = "0.1.0"

@@ -50,3 +50,19 @@ def cuda_ms(fn: Callable[[], object], iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+# the published peaks a bound is taken against (NVIDIA's H100 SXM data
+# sheet, 700 W): device memory, and the 32-bit rate outside the tensor
+# cores, which the count kernels' integer hashing and compares run at best
+HBM_BYTES_S = 3.35e12
+SCALAR_OPS_S = 67e12
+
+
+def bound_ms(n_bytes: float, n_ops: float = 0.0) -> tuple:
+    """``(ms, "bytes" or "operations")``: the least time the card could
+    take to move ``n_bytes`` (each input read once, each output written
+    once) and do ``n_ops``, and which of the two bounds it."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_S, n_ops / SCALAR_OPS_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")

@@ -1,7 +1,7 @@
 """Benchmark: restricted k-mer counting throughput (reads/s) on one GPU.
 
 The counterpart of ``bench.py`` for the port: the identification hot path
-end to end (FASTQ parse -> 2-bit pack -> h2d -> ``count_fp_kernel`` ->
+end to end (FASTQ parse -> 2-bit pack -> h2d -> the binned ``count_fp`` ->
 id-space counts on the host) at two table scales, with bench.py's tiers,
 inputs and JSON keys:
 
@@ -45,13 +45,13 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from strainscan_tpu.index.hashtable import KmerTable
-from strainscan_tpu.io import fastx
-from strainscan_tpu.kmer import pack
-from strainscan_tpu.utils.prefetch import prefetch_iter
 from strainscan_tpu_torch.bench import card_line, cuda_device, cuda_ms
+from strainscan_tpu_torch.index.hashtable import KmerTable
+from strainscan_tpu_torch.io import fastx
+from strainscan_tpu_torch.kmer import pack
 from strainscan_tpu_torch.ops.count import CountPipeline
 from strainscan_tpu_torch.ops.probe import count_fp
+from strainscan_tpu_torch.utils.prefetch import prefetch_iter
 
 METRIC = "kmer_match_reads_per_s_ecoli_scale"
 READ_LEN = 150
@@ -215,10 +215,11 @@ def breakdown(pipe: CountPipeline, fq: str, first: np.ndarray,
     (payload,) = pipe.prepare_batch(first)
     form, words, valid = payload
     words, valid = words.to(pipe.device), valid.to(pipe.device)
-    scratch = torch.zeros_like(pipe.counts)
-    ms = cuda_ms(lambda: count_fp(scratch, words, pipe.table.fp,
+    counts = torch.zeros_like(pipe.counts)
+    ms = cuda_ms(lambda: count_fp(counts, words, pipe.table.fp,
                                   length=first.shape[1], k=pipe.k,
-                                  seed=pipe.table.seed, **{form: valid}), 8)
+                                  seed=pipe.table.seed, scratch=pipe.scratch,
+                                  **{form: valid}), 8)
     t_dev = ms / 1e3 * (nb / first.shape[0])
     nw = n_reads * (MAXLEN - K + 1)
     log(f"breakdown: parse {t_parse} s | pack ~{t_pack} s | device "

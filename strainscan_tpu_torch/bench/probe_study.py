@@ -142,6 +142,9 @@ def gather_section(device, n_keys: int = N_KEYS, windows: int = W,
                                dtype=np.int32)
     wide = table.view(n_buckets // 2, 2 * BUCKET)
     idx_wide = torch.from_numpy(idx_wide_np).to(dev)
+    # the distinct rows each width reads (a bound reads each of them once)
+    res["rows_touched_512B"] = int(np.unique(idx_wide_np).size)
+    res["rows_touched_256B"] = int(np.unique(idx_np).size)
     res["xla_gather_Mrows_s_512B"] = windows / cuda_ms(
         lambda: gather_reduce(wide, idx_wide), reps) / 1e3
     log(f"torch gather-and-reduce: {res['xla_gather_Mrows_s_256B']} M rows/s "

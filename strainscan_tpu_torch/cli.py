@@ -4,8 +4,8 @@ Subcommand flags mirror ``strainscan_tpu.cli`` (and through it the
 reference CLIs), plus ``--device {cuda,cpu}`` for ``identify`` and
 ``batch-identify``: ``cuda`` counts on every visible GPU (one GPU: the
 single-device path; several: the sharded path for large tables).
-``build``, ``convert`` and ``subsample`` are host-only and delegate to the
-shared host code of ``strainscan_tpu``.
+``build``, ``convert`` and ``subsample`` run on the host only, in the
+port's own host modules (``build/``, ``io/``, ``native/``).
 
 Multi-host: under ``torchrun`` (``MASTER_ADDR``, ``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK`` set) every process joins a gloo group, counts its
@@ -133,7 +133,7 @@ def _add_subsample(sub):
 
 
 def _identify_cfg(args, **kw):
-    from strainscan_tpu.config import IdentifyConfig
+    from strainscan_tpu_torch.config import IdentifyConfig
 
     return IdentifyConfig(
         ksize=args.ksize, low_dep=args.ldep, strain_prob=bool(args.sprob),
@@ -162,7 +162,7 @@ def main(argv=None) -> int:
         logging.info("multi-host run: process %d/%d", idx, n)
 
     if args.cmd == "convert":
-        from strainscan_tpu.build import convert
+        from strainscan_tpu_torch.build import convert
 
         if args.to_reference:
             convert.export_reference_db(args.in_db, args.out_db)
@@ -172,9 +172,8 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "build":
-        from strainscan_tpu.build.pipeline import build_database
-        from strainscan_tpu.config import BuildConfig
-        from strainscan_tpu_torch.timing import phase, without_jax_trace
+        from strainscan_tpu_torch.build.pipeline import build_database
+        from strainscan_tpu_torch.config import BuildConfig
 
         cfg = BuildConfig(
             ksize=args.ksize, threads=args.threads, uk_num=args.uknum,
@@ -185,12 +184,9 @@ def main(argv=None) -> int:
         if args.mas:
             print("note: -m/--strainest_sample MSA mode is subsumed by "
                   "presence-pattern k-mer selection")
-        # the shared builder's own phases would import jax to trace: trace
-        # the whole build once here instead
-        with phase("build"), without_jax_trace():
-            build_database(args.input_fa, args.out_dir, cfg,
-                           custom_cls_file=args.cls_custom_file or None,
-                           resume=args.resume)
+        build_database(args.input_fa, args.out_dir, cfg,
+                       custom_cls_file=args.cls_custom_file or None,
+                       resume=args.resume)
         return 0
 
     if args.cmd == "identify":
@@ -210,7 +206,7 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "batch-identify":
-        from strainscan_tpu.io.fastx import genome_prefix
+        from strainscan_tpu_torch.io.fastx import genome_prefix
         from strainscan_tpu_torch.identify.pipeline import run_identify
         from strainscan_tpu_torch.parallel.sharded import resolve_mesh
 
@@ -241,9 +237,9 @@ def main(argv=None) -> int:
         return 0 if n_found else 1
 
     if args.cmd == "subsample":
-        from strainscan_tpu.build import cluster as cluster_mod
-        from strainscan_tpu.build import distance, select_rep
-        from strainscan_tpu.io import fastx
+        from strainscan_tpu_torch.build import cluster as cluster_mod
+        from strainscan_tpu_torch.build import distance, select_rep
+        from strainscan_tpu_torch.io import fastx
 
         cls_res = os.path.join(args.out_dir, "Cls_res")
         ref_dir = os.path.join(args.out_dir, "Rep_ref")

@@ -3,8 +3,8 @@
 The counterpart of ``__graft_entry__.py``.
 
 ``entry(device)`` returns ``(fn, args)``: the flagship forward step on
-``device``, the fused k-mer match and count (``count_fp_kernel`` on the raw
-codes of a CUDA tensor, its plain twin on the CPU), the id-space gather, and
+``device``, the k-mer match and count (``count_fp``'s binned kernels on
+the raw codes of a CUDA tensor, its plain twin on the CPU), the id-space gather, and
 the layer-2 moments ``X^T y`` and Gram ``X^T X`` that feed the Elastic-Net
 solve, in float32 by ``torch.matmul`` with TF32 off.  The moments and Gram
 are sums of integers below 2^24, so they are exact on any device.
@@ -24,8 +24,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from strainscan_tpu.index.hashtable import FpTable
-from strainscan_tpu.kmer import pack
+from strainscan_tpu_torch.index.hashtable import FpTable
+from strainscan_tpu_torch.kmer import pack
 
 K = 31
 
@@ -52,7 +52,7 @@ def _check(cond, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """``(fn, args)`` with ``fn(*args) -> (counts int32 [n_keys], moments
     float32 [s], gram float32 [s, s])`` on ``device``."""
     from strainscan_tpu_torch.device import resolve_device

@@ -21,14 +21,14 @@ from typing import Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
-from strainscan_tpu.config import IdentifyConfig
-from strainscan_tpu.index.hashtable import FpTable, KmerTable
-from strainscan_tpu.io import fastx
-from strainscan_tpu.utils.prefetch import prefetch_iter
+from strainscan_tpu_torch.config import IdentifyConfig
+from strainscan_tpu_torch.index.hashtable import FpTable, KmerTable
+from strainscan_tpu_torch.io import fastx
 from strainscan_tpu_torch.ops.count import CountPipeline, Payload
 from strainscan_tpu_torch.parallel import distributed as dist
 from strainscan_tpu_torch.parallel.sharded import (Mesh, ShardedCountPipeline,
                                                    resolve_mesh)
+from strainscan_tpu_torch.utils.prefetch import prefetch_iter
 
 PathLike = Union[str, Sequence[str]]
 

@@ -5,7 +5,7 @@ the reference StrainScan.py:113-271):
     CST search with the cutoff ladder -> (optional) plasmid re-build ->
     per-cluster layer-2 strain voting -> final report.
 
-The DB loads with the shared host loader; its fingerprint table is uploaded
+The DB loads with the port's loader (``build/db.py``); its fingerprint table is uploaded
 to the device once and cached on the table object, so ``batch-identify``
 keeps it resident between samples.  On a mesh of several devices the
 count shards its table over the mesh (``cfg.shard_min_kmers``) and the L2
@@ -18,16 +18,15 @@ import logging
 import os
 from typing import Dict, Optional
 
-from strainscan_tpu.build.db import load_tree_db
-from strainscan_tpu.config import BuildConfig, IdentifyConfig
-from strainscan_tpu.identify import low_depth
-from strainscan_tpu.identify.cst_search import identify_cluster
-from strainscan_tpu.io import fastx
-from strainscan_tpu_torch.identify import vote
+from strainscan_tpu_torch.build.db import load_tree_db
+from strainscan_tpu_torch.config import BuildConfig, IdentifyConfig
+from strainscan_tpu_torch.identify import low_depth, vote
 from strainscan_tpu_torch.identify.count import count_sample
+from strainscan_tpu_torch.identify.cst_search import identify_cluster
 from strainscan_tpu_torch.index.hashtable import fp_table_of
+from strainscan_tpu_torch.io import fastx
 from strainscan_tpu_torch.parallel.sharded import resolve_mesh
-from strainscan_tpu_torch.timing import phase, without_jax_trace
+from strainscan_tpu_torch.timing import phase
 
 log = logging.getLogger("strainscan_tpu_torch.identify")
 
@@ -121,7 +120,7 @@ def run_identify(
     pmode, emode = cfg.plasmid_mode, int(cfg.extra_region)
     vote_db_dir = db_dir
     if pmode in (1, 2):
-        from strainscan_tpu.build.pipeline import build_database
+        from strainscan_tpu_torch.build.pipeline import build_database
 
         if pmode == 1:
             plas_ref = extract_plasmid_refs(db.recls, res, out_dir, rgenome)
@@ -129,10 +128,9 @@ def run_identify(
             plas_ref = rgenome
         pdb = os.path.join(out_dir, "DB_plasmid")
         log.info("building plasmid DB from %s", plas_ref)
-        with without_jax_trace():   # its phase hook would import jax
-            build_database(plas_ref, pdb,
-                           BuildConfig(ksize=cfg.ksize, min_kmer=500),
-                           use_native=use_native)
+        build_database(plas_ref, pdb,
+                       BuildConfig(ksize=cfg.ksize, min_kmer=500),
+                       use_native=use_native)
         pdb_tree = load_tree_db(pdb)
         pcounts = count_sample(fp_table_of(pdb_tree.table), paths, device,
                                cfg, use_native=use_native,

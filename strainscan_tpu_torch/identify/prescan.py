@@ -17,7 +17,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from strainscan_tpu.config import IdentifyConfig
+from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.ops import enet, l2
 from strainscan_tpu_torch.parallel import sharded as psh
 from strainscan_tpu_torch.timing import phase_acc

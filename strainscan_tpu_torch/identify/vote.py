@@ -19,11 +19,11 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from strainscan_tpu.build.db import L2DB, load_l2_db, load_manifest
-from strainscan_tpu.config import IdentifyConfig
-from strainscan_tpu.index.hashtable import FpTable
+from strainscan_tpu_torch.build.db import L2DB, load_l2_db, load_manifest
+from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.identify import prescan
 from strainscan_tpu_torch.identify.count import count_sample
+from strainscan_tpu_torch.index.hashtable import FpTable
 
 
 def check_l1_res(res: Dict[int, dict]) -> bool:

@@ -1,11 +1,17 @@
-"""Fingerprint-table hashing and lookup on tensors, and the device table.
+"""Bucketed k-mer hash tables: the host builders and the device lookups.
 
-Port of the device half of ``strainscan_tpu/index/hashtable.py``
-(``mix_jnp``, ``fp2_jnp``, ``lookup_fp_device``, ``lookup_device``).  Table
-construction stays the shared host code (``FpTable.build`` /
-``from_kmer_table``, ``KmerTable.build``); this module turns a host
-:class:`FpTable` or :class:`KmerTable` into device tensors, once per device.
+The host half is a copy of ``strainscan_tpu/index/hashtable.py`` without
+its JAX functions: the exact table :class:`KmerTable` (``n_buckets``
+power-of-two buckets of ``BUCKET`` = 8 slots, bucket-level linear probing,
+load 0.25; empty slots hold key 0xFFFFFFFF/0xFFFFFFFF and id -1), its lazy
+loader, the single-probe fingerprint table :class:`FpTable` (``bucket``
+uint32 fingerprints per row, a seed search until every key sits in its
+home bucket with a bucket-unique fingerprint) and :func:`build_fp_shards`.
+Both packages build bit-identical tables from the same keys, and the files
+they save are byte-identical.
 
+The device half ports ``mix_jnp``, ``fp2_jnp``, ``lookup_fp_device`` and
+``lookup_device`` to tensors, and uploads a host table once per device.
 uint32 values are int64 tensors in ``[0, 2**32)`` (see :mod:`..kmer.device`);
 the device tables are int32 tensors holding the uint32 bits.
 """
@@ -17,8 +23,520 @@ import dataclasses
 import numpy as np
 import torch
 
-from strainscan_tpu.index.hashtable import FpTable, KmerTable
 from strainscan_tpu_torch.kmer.device import M32, from_u32, u32_to_i32
+
+BUCKET = 8
+_EMPTY32 = np.uint32(0xFFFFFFFF)
+
+
+def keys_checksum(keys_u64: np.ndarray) -> int:
+    """Order-independent content checksum of a key set (XOR fold + count).
+
+    Written into both the exact-table archive and the fp sidecar so a
+    loader can detect a sidecar that does not belong to its table (same
+    n_keys/k but different keys) without reading the big arrays."""
+    keys_u64 = np.asarray(keys_u64, dtype=np.uint64)
+    x = int(np.bitwise_xor.reduce(keys_u64)) if keys_u64.size else 0
+    return (x ^ (keys_u64.size * 0x9E3779B97F4A7C15)) & 0xFFFFFFFFFFFFFFFF
+
+
+def _fmix32_np(h):
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    h = h ^ (h >> np.uint32(16))
+    return h
+
+
+def mix_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """32-bit hash of a (hi, lo) packed k-mer — NumPy version."""
+    h = _fmix32_np(hi.astype(np.uint32) ^ np.uint32(0x9E3779B9))
+    return _fmix32_np(h ^ lo.astype(np.uint32))
+
+
+def mix_seeded_np(hi: np.ndarray, lo: np.ndarray, seed: int) -> np.ndarray:
+    h = _fmix32_np(hi.astype(np.uint32) ^ np.uint32(0x9E3779B9 ^ seed))
+    return _fmix32_np(h ^ lo.astype(np.uint32))
+
+
+def fp2_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """Second, bucket-independent 32-bit fingerprint hash (NumPy)."""
+    h = _fmix32_np(lo.astype(np.uint32) ^ np.uint32(0x85EBCA6B))
+    return _fmix32_np(h ^ hi.astype(np.uint32))
+
+
+@dataclasses.dataclass
+class KmerTable:
+    """Static k-mer -> id hash table (host arrays; ship halves to device)."""
+
+    key_hi: np.ndarray  # uint32 [n_buckets * BUCKET]
+    key_lo: np.ndarray  # uint32 [n_buckets * BUCKET]
+    val: np.ndarray     # int32  [n_buckets * BUCKET]
+    n_buckets: int
+    max_probe: int
+    n_keys: int
+    k: int
+
+    # ------------------------------------------------------------- build
+    @classmethod
+    def build(cls, keys_u64: np.ndarray, k: int, values: np.ndarray | None = None,
+              load_factor: float = 0.25) -> "KmerTable":
+        """Build from unique packed k-mers (uint64). ``values[i]`` defaults to i."""
+        keys_u64 = np.asarray(keys_u64, dtype=np.uint64)
+        n = int(keys_u64.shape[0])
+        if values is None:
+            values = np.arange(n, dtype=np.int32)
+        else:
+            values = np.asarray(values, dtype=np.int32)
+        n_buckets = 1
+        while n_buckets * BUCKET * load_factor < max(n, 1):
+            n_buckets *= 2
+        cap = n_buckets * BUCKET
+        key_hi = np.full(cap, _EMPTY32, dtype=np.uint32)
+        key_lo = np.full(cap, _EMPTY32, dtype=np.uint32)
+        val = np.full(cap, -1, dtype=np.int32)
+
+        # native sequential builder (strainscan_tpu/native/fastx.c
+        # table_build) — ~100M keys/s; NumPy cascade below is the fallback
+        from strainscan_tpu_torch import native
+
+        lib = native.get_lib()
+        if lib is not None and n > 0:
+            import ctypes
+
+            keys_c = np.ascontiguousarray(keys_u64)
+            vals_c = np.ascontiguousarray(values)
+            mp = lib.table_build(
+                keys_c.ctypes.data_as(ctypes.c_void_p),
+                vals_c.ctypes.data_as(ctypes.c_void_p),
+                n, n_buckets,
+                key_hi.ctypes.data_as(ctypes.c_void_p),
+                key_lo.ctypes.data_as(ctypes.c_void_p),
+                val.ctypes.data_as(ctypes.c_void_p))
+            if mp < 0:
+                raise RuntimeError("hash table build failed (table full)")
+            return cls(key_hi=key_hi, key_lo=key_lo, val=val,
+                       n_buckets=n_buckets, max_probe=int(mp), n_keys=n, k=k)
+
+        hi = (keys_u64 >> np.uint64(32)).astype(np.uint32)
+        lo = (keys_u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        bucket = (mix_np(hi, lo) & np.uint32(n_buckets - 1)).astype(np.int64)
+
+        # Vectorized cascading placement: each round places every pending key
+        # whose within-bucket rank fits the bucket's remaining capacity, then
+        # advances the overflow to the next bucket.  Terminates because total
+        # keys < total slots.
+        free = np.full(n_buckets, BUCKET, dtype=np.int64)  # free slots/bucket
+        pending = np.arange(n, dtype=np.int64)
+        cur_bucket = bucket.copy()
+        max_probe = 1
+        probe_round = 0
+        while pending.size:
+            order = np.argsort(cur_bucket[pending], kind="stable")
+            p_sorted = pending[order]
+            b_sorted = cur_bucket[p_sorted]
+            # rank of each key within its current bucket group
+            uniq, start_idx, counts = np.unique(
+                b_sorted, return_index=True, return_counts=True
+            )
+            rank = np.arange(p_sorted.size) - np.repeat(start_idx, counts)
+            capacity = free[b_sorted]
+            fits = rank < capacity
+            placed = p_sorted[fits]
+            if placed.size:
+                slot_in_bucket = (BUCKET - capacity[fits]) + rank[fits]
+                pos = b_sorted[fits] * BUCKET + slot_in_bucket
+                key_hi[pos] = hi[placed]
+                key_lo[pos] = lo[placed]
+                val[pos] = values[placed]
+            free[uniq] -= np.minimum(counts, free[uniq])
+            pending = p_sorted[~fits]
+            if pending.size:
+                cur_bucket[pending] = (cur_bucket[pending] + 1) % n_buckets
+                probe_round += 1
+                max_probe = probe_round + 1
+                if probe_round > n_buckets:
+                    raise RuntimeError("hash table build failed to converge")
+        return cls(key_hi=key_hi, key_lo=key_lo, val=val, n_buckets=n_buckets,
+                   max_probe=max_probe, n_keys=n, k=k)
+
+    # ------------------------------------------------------------- query
+    def lookup_host(self, keys_u64: np.ndarray) -> np.ndarray:
+        """NumPy lookup (oracle/tests/host paths). Returns int32 ids, -1 miss."""
+        keys_u64 = np.asarray(keys_u64, dtype=np.uint64)
+        hi = (keys_u64 >> np.uint64(32)).astype(np.uint32)
+        lo = (keys_u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        bucket = mix_np(hi, lo).astype(np.int64) & (self.n_buckets - 1)
+        out = np.full(keys_u64.shape[0], -1, dtype=np.int32)
+        lane = np.arange(BUCKET, dtype=np.int64)
+        for p in range(self.max_probe):
+            base = ((bucket + p) % self.n_buckets) * BUCKET
+            idx = base[:, None] + lane[None, :]
+            hit = (
+                (self.key_hi[idx] == hi[:, None])
+                & (self.key_lo[idx] == lo[:, None])
+                & (self.val[idx] >= 0)
+            )
+            found = np.where(hit, self.val[idx], -1).max(axis=1)
+            out = np.where(out < 0, found, out)
+        return out
+
+    def interleaved(self) -> np.ndarray:
+        """[n_buckets, BUCKET*3] int32 (hi, lo, val interleaved per slot).
+
+        The device-side layout: one bucket probe is ONE row gather of
+        ``3*BUCKET`` contiguous int32s.  On TPU this is ~30x faster than
+        three separate 8-wide gathers — XLA gather cost scales with row
+        count, not row width."""
+        inter = np.empty((self.n_buckets, BUCKET * 3), dtype=np.int32)
+        inter[:, 0::3] = self.key_hi.view(np.int32).reshape(
+            self.n_buckets, BUCKET)
+        inter[:, 1::3] = self.key_lo.view(np.int32).reshape(
+            self.n_buckets, BUCKET)
+        inter[:, 2::3] = self.val.reshape(self.n_buckets, BUCKET)
+        return inter
+
+    # --------------------------------------------------------------- io
+    def save(self, path: str) -> None:
+        # occupied-slots-only, UNCOMPRESSED (v2): the dense arrays are 75%
+        # empty sentinels at load factor 0.25 — zlib shrinks them 3.9x but
+        # its inflate dominated the cold identify load (16.6s vs a 2-4s
+        # sparse read + scatter at E. coli scale, worse when the host
+        # throttles); sparse-uncompressed costs ~20B/key (int64 slot —
+        # n_slots exceeds 2^31 above ~134M keys at load 0.25 — + 4B hi +
+        # 4B lo + 4B val), comparable to the compressed dense size with
+        # no decompress.  load() reads v1 (dense) too.
+        occ = np.nonzero(self.val >= 0)[0].astype(np.int64)
+        keys = (self.key_hi[occ].astype(np.uint64) << np.uint64(32)) | \
+            self.key_lo[occ].astype(np.uint64)
+        np.savez(
+            path,
+            slot=occ,
+            okey_hi=self.key_hi[occ],
+            okey_lo=self.key_lo[occ],
+            oval=self.val[occ],
+            meta=np.array([self.n_buckets, self.max_probe, self.n_keys, self.k],
+                          dtype=np.int64),
+            csum=np.array([keys_checksum(keys)], dtype=np.uint64),
+        )
+
+    @classmethod
+    def load(cls, path: str, lazy: bool = False) -> "KmerTable":
+        """``lazy=True`` defers reading the slot arrays until first use:
+        the fp-mode identify hot path never touches them (the probe runs
+        on the FpTable sidecar), and at E. coli scale the 572 MB
+        table.npz read + inflate-to-dense is ~10-16 s of pure cold-load
+        latency.  Metadata (n_keys, k, geometry) loads eagerly — npz is
+        a zip, so reading just the 32-byte ``meta`` member is free."""
+        z = np.load(path)
+        n_buckets, max_probe, n_keys, k = (int(x) for x in z["meta"])
+        csum = int(z["csum"][0]) if "csum" in z.files else None
+        if lazy:
+            z.close()
+            out = _LazyKmerTable(path, n_buckets=n_buckets,
+                                 max_probe=max_probe, n_keys=n_keys, k=k)
+            out._csum = csum
+            return out
+        if "slot" in z.files:                      # v2: occupied slots only
+            n_slots = n_buckets * BUCKET
+            key_hi = np.full(n_slots, _EMPTY32, dtype=np.uint32)
+            key_lo = np.full(n_slots, _EMPTY32, dtype=np.uint32)
+            val = np.full(n_slots, -1, dtype=np.int32)
+            occ = z["slot"]
+            key_hi[occ] = z["okey_hi"]
+            key_lo[occ] = z["okey_lo"]
+            val[occ] = z["oval"]
+        else:                                      # v1: dense arrays
+            key_hi, key_lo, val = z["key_hi"], z["key_lo"], z["val"]
+        return cls(key_hi=key_hi, key_lo=key_lo, val=val,
+                   n_buckets=n_buckets, max_probe=max_probe, n_keys=n_keys, k=k)
+
+
+class _LazyKmerTable(KmerTable):
+    """KmerTable whose slot arrays load from disk on first access.
+
+    Used by ``load(lazy=True)``: fp-mode pipelines read only the scalar
+    geometry, so the arrays (the bulk of the artifact) stay on disk for
+    the life of a typical identify run.  Exact-mode probes, re-saves, or
+    fp re-derivation transparently materialize them."""
+
+    def __init__(self, path: str, n_buckets: int, max_probe: int,
+                 n_keys: int, k: int):
+        self._path = path
+        self._arrays = None
+        self.n_buckets = n_buckets
+        self.max_probe = max_probe
+        self.n_keys = n_keys
+        self.k = k
+
+    def _materialize(self):
+        if self._arrays is None:
+            full = KmerTable.load(self._path, lazy=False)
+            self._arrays = (full.key_hi, full.key_lo, full.val)
+        return self._arrays
+
+    key_hi = property(lambda self: self._materialize()[0])
+    key_lo = property(lambda self: self._materialize()[1])
+    val = property(lambda self: self._materialize()[2])
+
+    # the dataclass-generated __repr__/__eq__ format/compare the slot
+    # arrays — on this subclass that would silently trigger the 572 MB
+    # read the laziness exists to skip (any log line or debugger render)
+    def __repr__(self):
+        state = "materialized" if self._arrays is not None else "lazy"
+        return (f"_LazyKmerTable({self._path!r}, n_keys={self.n_keys}, "
+                f"k={self.k}, {state})")
+
+    def __eq__(self, other):
+        return self is other
+
+    __hash__ = object.__hash__
+
+
+@dataclasses.dataclass
+class FpTable:
+    """Single-probe fingerprint table — the TPU hot-path index.
+
+    The query cost of :class:`KmerTable` is dominated by XLA's gather unit
+    (~150-350M rows/s on v5e regardless of locality), so the probe loop is
+    optimized for *one gather of the narrowest possible row*: each bucket
+    is ``bucket`` consecutive uint32 fingerprints (no keys, no values in
+    the hot row).  Build retries hash seeds until every key fits its home
+    bucket with a bucket-unique fingerprint — queries then need exactly
+    one row gather + lane compare.  Hits are counted in *slot space*
+    (``bucket_idx * bucket + lane``) and remapped to k-mer ids once per
+    stream via ``val``.
+
+    A query that misses can still match a random fingerprint with
+    probability ``bucket * 2**-32`` (~1.5e-8 at bucket=64): over a
+    10^8-window sample that is ~1.5 expected stray counts spread over
+    millions of k-mers — far below the reference pipeline's own outlier
+    trims (100x-median culls, identify.py:106-112), and in practice
+    every parity test and the bench's bit-identity assert against
+    jellyfish still pass.  Exact probing remains available via
+    :class:`KmerTable` (``probe_mode="exact"``).
+    """
+
+    fp: np.ndarray      # uint32 [n_buckets * bucket] (0 in empty slots)
+    val: np.ndarray     # int32  [n_buckets * bucket] (-1 empty)
+    n_buckets: int
+    bucket: int
+    seed: int
+    n_keys: int
+    k: int
+
+    @classmethod
+    def build_attempt(cls, keys_u64: np.ndarray, k: int,
+                      values: np.ndarray, n_buckets: int, bucket: int,
+                      seed: int) -> "FpTable | None":
+        """ONE placement attempt at fixed geometry/seed; None on failure
+        (overfull home bucket or duplicate in-bucket fingerprint)."""
+        n = int(keys_u64.shape[0])
+        cap = n_buckets * bucket
+        fp = np.zeros(cap, dtype=np.uint32)
+        val = np.full(cap, -1, dtype=np.int32)
+        from strainscan_tpu_torch import native
+
+        lib = native.get_lib()
+        if lib is not None and hasattr(lib, "table_build_fp"):
+            import ctypes
+
+            ok = lib.table_build_fp(
+                keys_u64.ctypes.data_as(ctypes.c_void_p),
+                values.ctypes.data_as(ctypes.c_void_p),
+                n, n_buckets, bucket, np.uint32(seed),
+                fp.ctypes.data_as(ctypes.c_void_p),
+                val.ctypes.data_as(ctypes.c_void_p))
+            if ok == 0:
+                return cls(fp=fp, val=val, n_buckets=n_buckets,
+                           bucket=bucket, seed=seed, n_keys=n, k=k)
+            return None
+        # NumPy fallback: rank keys within their home bucket
+        hi = (keys_u64 >> np.uint64(32)).astype(np.uint32)
+        lo = (keys_u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        f = fp2_np(hi, lo)
+        b = mix_seeded_np(hi, lo, seed).astype(np.int64) & (n_buckets - 1)
+        order = np.argsort(b, kind="stable")
+        b_sorted = b[order]
+        uniq, start, cnt = np.unique(
+            b_sorted, return_index=True, return_counts=True)
+        if cnt.size and cnt.max() > bucket:
+            return None
+        rank = np.arange(n) - np.repeat(start, cnt)
+        pos = b_sorted * bucket + rank
+        fp[pos] = f[order]
+        val[pos] = values[order]
+        # in-bucket fingerprint uniqueness
+        fp2d = fp.reshape(n_buckets, bucket)
+        occ = val.reshape(n_buckets, bucket) >= 0
+        s = np.sort(np.where(occ, fp2d, np.uint32(0)), axis=1)
+        dup = (s[:, 1:] == s[:, :-1]) & (s[:, 1:] != 0)
+        if dup.any():
+            return None
+        return cls(fp=fp, val=val, n_buckets=n_buckets, bucket=bucket,
+                   seed=seed, n_keys=n, k=k)
+
+    @classmethod
+    def build(cls, keys_u64: np.ndarray, k: int,
+              values: np.ndarray | None = None, bucket: int = 64,
+              load_factor: float = 0.5, max_seed_tries: int = 32) -> "FpTable":
+        """Build from unique packed k-mers; retries seeds (then doubles the
+        table) until the single-probe invariant holds.
+
+        Geometry default (bucket=64 fingerprints/row = 256B, load 0.5)
+        comes from the measured v5e gather curve
+        (benchmarks/PROBE_STUDY*.json): XLA row gathers cost per ROW, and
+        256B rows run ~2x the rows/s of 64B rows on HBM-resident tables
+        (88M vs 44M rows/s at 512MB), lifting the fused
+        probe+compare+scatter kernel from 30.1 to 44.5M windows/s at
+        E. coli scale (28.6M keys) while halving table bytes vs the old
+        bucket=16 load 0.25."""
+        keys_u64 = np.ascontiguousarray(keys_u64, dtype=np.uint64)
+        n = int(keys_u64.shape[0])
+        if values is None:
+            values = np.arange(n, dtype=np.int32)
+        values = np.ascontiguousarray(values, dtype=np.int32)
+        n_buckets = 1
+        while n_buckets * bucket * load_factor < max(n, 1):
+            n_buckets *= 2
+        while True:
+            for seed in range(max_seed_tries):
+                t = cls.build_attempt(keys_u64, k, values, n_buckets, bucket,
+                                      seed)
+                if t is not None:
+                    return t
+            n_buckets *= 2
+
+    @classmethod
+    def from_kmer_table(cls, table: "KmerTable", **kw) -> "FpTable":
+        """Derive from a stored exact table (ids preserved)."""
+        occ = table.val >= 0
+        keys = (table.key_hi[occ].astype(np.uint64) << np.uint64(32)) | \
+            table.key_lo[occ].astype(np.uint64)
+        return cls.build(keys, k=table.k, values=table.val[occ], **kw)
+
+    @property
+    def n_slots(self) -> int:
+        return self.n_buckets * self.bucket
+
+    def remap_counts(self, slot_counts: np.ndarray) -> np.ndarray:
+        """Slot-space counts -> id-space counts (stray slots dropped)."""
+        out = np.zeros(self.n_keys, dtype=slot_counts.dtype)
+        occ = self.val >= 0
+        out[self.val[occ]] = slot_counts[occ]
+        return out
+
+    def slot_of_id(self) -> np.ndarray:
+        """int32 [n_keys]: slot index of every k-mer id.
+
+        Enables the device-side remap ``id_counts = slot_counts[slot_of_id]``
+        so only ``n_keys`` (not ``n_slots``) counts cross the (slow) d2h
+        link at stream end."""
+        cached = getattr(self, "_slot_of_id", None)
+        if cached is not None:
+            return cached
+        out = np.empty(self.n_keys, dtype=np.int32)
+        occ = np.nonzero(self.val >= 0)[0].astype(np.int32)
+        out[self.val[occ]] = occ
+        object.__setattr__(self, "_slot_of_id", out)
+        return out
+
+    def lookup_host(self, keys_u64: np.ndarray) -> np.ndarray:
+        """NumPy slot lookup (oracle/tests). Returns int32 slot ids, -1 miss."""
+        keys_u64 = np.asarray(keys_u64, dtype=np.uint64)
+        hi = (keys_u64 >> np.uint64(32)).astype(np.uint32)
+        lo = (keys_u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        b = mix_seeded_np(hi, lo, self.seed).astype(np.int64) & (self.n_buckets - 1)
+        f = fp2_np(hi, lo)
+        rows = self.fp.reshape(self.n_buckets, self.bucket)[b]
+        hit = rows == f[:, None]
+        lane = hit.argmax(axis=1)
+        found = hit.any(axis=1)
+        return np.where(found, b * self.bucket + lane, -1).astype(np.int32)
+
+    # --------------------------------------------------------------- io
+    def save(self, path: str, content_csum: int | None = None) -> None:
+        """Persist as a DB sidecar so cold identify loads skip the seed
+        search + placement (~10 s at E. coli scale — round-3 VERDICT
+        weak #6).  Stored uncompressed: the dense ``fp`` array (one
+        contiguous read, no inflate, exactly what ships to the device)
+        plus ``slot_of_id`` — ``val`` is their inverse (val[slot_of_id]
+        = arange(n_keys), exact because ids are a permutation of
+        0..n_keys-1) and is rebuilt by one scatter at load.
+
+        ``content_csum``: :func:`keys_checksum` of the key set this
+        table was built from; loaders compare it with the exact table's
+        stored checksum so a sidecar from a different same-sized build
+        cannot be silently attached."""
+        occ_vals = self.val[self.val >= 0]
+        if occ_vals.size != self.n_keys or not np.array_equal(
+                np.sort(occ_vals), np.arange(self.n_keys, dtype=np.int32)):
+            raise ValueError(
+                "FpTable.save requires ids to be a permutation of "
+                "0..n_keys-1: load() reconstructs val as the inverse of "
+                "slot_of_id, which is only well-defined for permutations")
+        arrays = dict(
+            fp=self.fp,
+            slot_of_id=self.slot_of_id(),
+            meta=np.array([self.n_buckets, self.bucket, self.seed,
+                           self.n_keys, self.k], dtype=np.int64),
+        )
+        if content_csum is not None:
+            arrays["csum"] = np.array([content_csum], dtype=np.uint64)
+        np.savez(path, **arrays)
+
+    @classmethod
+    def load(cls, path: str) -> "FpTable":
+        z = np.load(path)
+        n_buckets, bucket, seed, n_keys, k = (int(x) for x in z["meta"])
+        fp = z["fp"]
+        soi = z["slot_of_id"].astype(np.int32, copy=False)
+        val = np.full(n_buckets * bucket, -1, dtype=np.int32)
+        val[soi] = np.arange(n_keys, dtype=np.int32)
+        out = cls(fp=fp, val=val, n_buckets=n_buckets, bucket=bucket,
+                  seed=seed, n_keys=n_keys, k=k)
+        object.__setattr__(out, "_slot_of_id", soi)
+        object.__setattr__(out, "_csum",
+                           int(z["csum"][0]) if "csum" in z.files else None)
+        return out
+
+
+def build_fp_shards(chunks, k: int, values_chunks=None, bucket: int = 64,
+                    load_factor: float = 0.5, max_seed_tries: int = 32):
+    """Per-shard FpTables sharing ONE (n_buckets, bucket, seed) geometry.
+
+    The sharded count pipeline stacks the shards into a rectangular
+    [n_shards, n_buckets, bucket] device array and probes every shard with
+    the same statically-compiled hash — so the single-probe invariant must
+    hold for every shard at a COMMON seed.  Tries seeds over all shards
+    jointly, doubling n_buckets when none of ``max_seed_tries`` works
+    (at load factor <= 0.25 the joint failure probability is tiny).
+    """
+    chunks = [np.ascontiguousarray(c, dtype=np.uint64) for c in chunks]
+    if values_chunks is None:
+        values_chunks = [np.arange(c.shape[0], dtype=np.int32)
+                         for c in chunks]
+    values_chunks = [np.ascontiguousarray(v, dtype=np.int32)
+                     for v in values_chunks]
+    n_max = max((c.shape[0] for c in chunks), default=1)
+    n_buckets = 1
+    while n_buckets * bucket * load_factor < max(n_max, 1):
+        n_buckets *= 2
+    while True:
+        for seed in range(max_seed_tries):
+            tables = []
+            for c, v in zip(chunks, values_chunks):
+                t = FpTable.build_attempt(c, k, v, n_buckets, bucket, seed)
+                if t is None:
+                    break
+                tables.append(t)
+            if len(tables) == len(chunks):
+                return tables
+        n_buckets *= 2
+
+
+# ------------------------------------------------------------ device half
 
 
 def _fmix(h: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
-SOURCES = ("probe_count.cu", "count_exact.cu", "row_gather.cu")
+SOURCES = ("probe_count.cu", "count_fp_bins.cu", "count_exact.cu",
+           "row_gather.cu")
 HEADERS = ("kmer_window.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -90,6 +91,19 @@ def lib() -> ctypes.CDLL:
             so.count_fp_launch.restype = i
             so.count_fp_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i, i,
                                            p, u, i, u, p, p]
+            so.fp_bin_count_launch.restype = i
+            so.fp_bin_count_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i,
+                                               i, u, u, i, i, i, i, p, p, p,
+                                               ll, p]
+            so.bin_scan_launch.restype = i
+            so.bin_scan_launch.argtypes = [i, p, i, p, p]
+            so.fp_bin_scatter_launch.restype = i
+            so.fp_bin_scatter_launch.argtypes = [i, p, p, p, p, ll, i, i, i,
+                                                 i, i, u, u, i, i, i, i, p, p,
+                                                 p, p]
+            so.fp_bin_probe_launch.restype = i
+            so.fp_bin_probe_launch.argtypes = [i, p, p, i, p, i, i, i, i, p,
+                                               ll, p]
             so.count_exact_launch.restype = i
             so.count_exact_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i,
                                               i, p, u, i, ll, p, p]

@@ -5,11 +5,13 @@ prepared on the host (:meth:`CountPipeline.prepare_batch`, in the producer
 thread), copied to the device, and counted in place by one kernel per
 batch:
 
-* ``probe_mode="fp"`` (default): the fused ``count_fp_kernel``
-  (:func:`..ops.probe.count_fp`) probes the single-row fingerprint table
-  into an int32 slot-space accumulator ``[n_slots + 1]`` (last entry: the
-  trash slot); :meth:`CountPipeline.finish` gathers it into the table's id
-  space on the device through ``slot_of_id``.
+* ``probe_mode="fp"`` (default): the binned count
+  (:func:`..ops.probe.count_fp`, four kernels that sort the batch's windows
+  by table slice and probe each slice from shared memory, with the
+  pipeline's :class:`..ops.probe.FpScratch`) probes the single-row
+  fingerprint table into an int32 slot-space accumulator ``[n_slots + 1]``
+  (last entry: the trash slot); :meth:`CountPipeline.finish` gathers it
+  into the table's id space on the device through ``slot_of_id``.
 * ``probe_mode="exact"``: ``count_exact_kernel``
   (:func:`..ops.probe.count_exact`) probes the interleaved exact table into
   an int32 id-space accumulator ``[n_keys + 1]`` (last entry: the trash
@@ -33,13 +35,13 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from strainscan_tpu.index.hashtable import FpTable, KmerTable
-from strainscan_tpu.kmer import pack
-from strainscan_tpu_torch.index.hashtable import (fp_table_of,
+from strainscan_tpu_torch.index.hashtable import (FpTable, KmerTable,
+                                                  fp_table_of,
                                                   fp_table_to_device,
                                                   kmer_table_to_device)
+from strainscan_tpu_torch.kmer import pack
 from strainscan_tpu_torch.kmer.device import from_u32
-from strainscan_tpu_torch.ops.probe import count_exact, count_fp
+from strainscan_tpu_torch.ops.probe import FpScratch, count_exact, count_fp
 
 Payload = Tuple[str, torch.Tensor, Optional[torch.Tensor]]
 
@@ -131,6 +133,7 @@ class CountPipeline:
         if probe_mode == "fp":
             fpt = table if isinstance(table, FpTable) else fp_table_of(table)
             self.table = fp_table_to_device(fpt, self.device)
+            self.scratch = FpScratch()
             n = fpt.n_slots + 1
         elif probe_mode == "exact":
             if not isinstance(table, KmerTable):
@@ -181,7 +184,8 @@ class CountPipeline:
             if self.probe_mode == "fp":
                 count_fp(self.counts, reads, self.table.fp, length=cols,
                          k=self.k, seed=self.table.seed,
-                         canonical=self.canonical, **valid)
+                         canonical=self.canonical, scratch=self.scratch,
+                         **valid)
             else:
                 count_exact(self.counts, reads, self.table.table,
                             length=cols, k=self.k,

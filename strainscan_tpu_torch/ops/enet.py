@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from strainscan_tpu.config import IdentifyConfig
+from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.ops import l2
 from strainscan_tpu_torch.parallel import sharded as psh
 
@@ -135,7 +135,7 @@ def _cd_path_all_folds(grams: np.ndarray, moments: np.ndarray,
     E. coli L2 scale (round-4 VERDICT weak #2)."""
     F, s = moments.shape
     A = int(alphas.size)
-    from strainscan_tpu import native
+    from strainscan_tpu_torch import native
 
     lib = native.get_lib()
     if lib is not None and hasattr(lib, "enet_cd_path"):

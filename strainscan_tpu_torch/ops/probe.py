@@ -34,8 +34,10 @@ from strainscan_tpu_torch.ops import _build
 
 # every kernel's launches, the measurement path's row_gather_kernel
 # (ops/gather.py) included, so reset_launches covers them all
-LAUNCHES = {"probe_prep_kernel": 0, "count_fp_kernel": 0,
-            "count_exact_kernel": 0, "row_gather_kernel": 0}
+LAUNCHES = {"probe_prep_kernel": 0, "fp_bin_count_kernel": 0,
+            "bin_scan_kernel": 0, "fp_bin_scatter_kernel": 0,
+            "fp_bin_probe_kernel": 0, "count_exact_kernel": 0,
+            "row_gather_kernel": 0, "count_fp_kernel": 0}
 
 # rows per chunk of the plain counts: bounds their [rows * M, row] gathers
 # (1.9 GB at 8192 x 226 x 64 int32 plus temporaries)
@@ -188,6 +190,300 @@ def _add_ones(counts: torch.Tensor, slots: torch.Tensor, trash: int) -> None:
 
 
 # -------------------------------------------------------------- count_fp
+# The binned design of count_fp (csrc/count_fp_bins.cu): a bin is a slice of
+# 2**shift consecutive buckets, at most SLICE_BYTES of table, so a block can
+# stage it in shared memory; the count and scatter kernels keep a histogram
+# of at most MAX_BINS bins in shared memory, so a table of more than
+# MAX_BINS * SLICE_BYTES (2 GiB) gets larger bins whose rows are read from
+# global memory.
+SLICE_BYTES = 1 << 16
+MAX_BINS = 1 << 15
+RUN = 64              # windows per thread work item (kRun)
+# count and scatter blocks per multiprocessor: at 16 (two waves of 32-row
+# blocks at 65,536 reads) the scatter's concurrent pair writes cover half
+# the pairs buffer, not all of it; chip_smoke.py times 1, 4 and 16
+BLOCKS_PER_SM = 16
+# rows per chunk of the plain probe (its [rows, bucket] gather: 256 MiB at
+# bucket 64)
+PLAIN_CHUNK_PAIRS = 1 << 20
+
+
+def fp_bin_shift(n_buckets: int, bucket: int) -> int:
+    """log2 of the buckets per bin of a ``[n_buckets, bucket]`` table."""
+    rows = max(1, SLICE_BYTES // (4 * bucket))
+    shift = min(rows.bit_length() - 1, n_buckets.bit_length() - 1)
+    while n_buckets >> shift > MAX_BINS:
+        shift += 1
+    return shift
+
+
+def fp_bin_stride(bucket: int, shift: int, vec: bool) -> int:
+    """Words per row of a bin staged in shared memory (padded so that rows
+    start on different banks), or 0 when the bin does not fit."""
+    if (bucket << shift) * 4 > SLICE_BYTES:
+        return 0
+    return bucket + 4 if vec else bucket | 1
+
+
+def fp_bin_blocks(n_rows: int, device: torch.device) -> tuple:
+    """``(n_blocks, rows_per_block)`` of the count and scatter kernels."""
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else 8)
+    per = max(1, -(-n_rows // (BLOCKS_PER_SM * sms)))
+    return -(-n_rows // per), per
+
+
+class FpScratch:
+    """The binned count's device buffers, per device, grown on demand and
+    reused by every batch: the bin totals (all zero between batches), the
+    bin starts, each block's offsets inside the bins and the binned
+    ``(fp, bucket)`` pairs (8 B per window).  A pipeline holds one; batches
+    on one device must run on one stream."""
+
+    def __init__(self):
+        self._bufs: dict = {}
+
+    def buffers(self, device: torch.device, n_bins: int, n_blocks: int,
+                n_pairs: int):
+        """``(bin_count [n_bins], bin_start [n_bins + 1], block_base
+        [n_blocks, n_bins], pairs [n_pairs, 2])`` int32 on ``device``."""
+        want = (n_bins, n_bins + 1, n_blocks * n_bins, max(n_pairs, 1))
+        have = self._bufs.get(str(device))
+        if have is None or any(h.shape[0] < w for h, w in zip(have, want)):
+            size = want if have is None else [
+                max(h.shape[0], w) for h, w in zip(have, want)]
+            have = (torch.zeros(size[0], dtype=torch.int32, device=device),
+                    torch.empty(size[1], dtype=torch.int32, device=device),
+                    torch.empty(size[2], dtype=torch.int32, device=device),
+                    torch.empty((size[3], 2), dtype=torch.int32,
+                                device=device))
+            self._bufs[str(device)] = have
+        bc, bs, bb, pairs = have
+        return (bc[:n_bins], bs[:n_bins + 1],
+                bb[:n_blocks * n_bins].view(n_blocks, n_bins),
+                pairs[:max(n_pairs, 1)])
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _valid_windows(words, vlen, vbytes, length, k, seed, n_buckets,
+                   canonical):
+    """Plain walk of a batch: per chunk of rows, ``(row0, bucket_or_neg
+    [rows, M], fp [rows, M])``."""
+    row0 = 0
+    for codes in _chunks(words, vlen, vbytes, length):
+        b, fp = probe_prep_plain(codes, k=k, n_buckets=n_buckets, seed=seed,
+                                 canonical=canonical)
+        yield row0, b, fp
+        row0 += codes.shape[0]
+
+
+def _binned(words, vlen, vbytes, length, k, seed, n_buckets, canonical,
+            shift, rows_per_block, n_bins):
+    """Every valid window of a batch in row-major order: ``(cell, fp,
+    bucket)`` with cell = block * n_bins + bin, and the non-valid count."""
+    cells, fps, bks, bad = [], [], [], 0
+    for row0, b, fp in _valid_windows(words, vlen, vbytes, length, k, seed,
+                                      n_buckets, canonical):
+        rows = torch.arange(row0, row0 + b.shape[0], device=b.device)
+        blk = (rows // rows_per_block)[:, None].expand_as(b)
+        ok = b >= 0
+        bad += int((~ok).sum())
+        cells.append(blk[ok].to(torch.int64) * n_bins
+                     + (b[ok] >> shift).to(torch.int64))
+        fps.append(fp[ok])
+        bks.append(b[ok])
+    return torch.cat(cells), torch.cat(fps), torch.cat(bks), bad
+
+
+def fp_bin_count_plain(bin_count, block_base, counts, words, *, length, k,
+                       seed, n_buckets, shift, rows_per_block,
+                       canonical=False, vlen=None, vbytes=None):
+    """Plain twin of :func:`fp_bin_count`: blocks reserve their ranges in
+    block order (the kernel's order is the atomics' order)."""
+    n_blocks, n_bins = block_base.shape
+    cells, _, _, bad = _binned(words, vlen, vbytes, length, k, seed,
+                               n_buckets, canonical, shift, rows_per_block,
+                               n_bins)
+    hist = torch.bincount(cells, minlength=n_blocks * n_bins).view(
+        n_blocks, n_bins)
+    base = hist.cumsum(0) - hist + bin_count.to(torch.int64)
+    block_base.copy_(torch.where(hist > 0, base, 0))
+    bin_count += hist.sum(0).to(torch.int32)
+    counts[-1] += bad
+    return bin_count
+
+
+def fp_bin_count(bin_count: torch.Tensor, block_base: torch.Tensor,
+                 counts: torch.Tensor, words: torch.Tensor, *, length: int,
+                 k: int, seed: int, n_buckets: int, shift: int,
+                 rows_per_block: int, canonical: bool = False,
+                 vlen: Optional[torch.Tensor] = None,
+                 vbytes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """First pass of the binned count: add the batch's valid windows per
+    bin (``bucket >> shift``) into ``bin_count`` int32 ``[n_bins]``, write
+    each block's offset inside each bin into ``block_base`` int32
+    ``[n_blocks, n_bins]`` (block i: rows ``[i * rows_per_block, (i + 1) *
+    rows_per_block)``), and add the invalid and padding windows to the
+    trash slot ``counts[-1]``.  The batch is as for :func:`count_fp`."""
+    valid = _payload(words, vlen, vbytes, length)
+    for t, name in ((bin_count, "bin_count"), (counts, "counts")):
+        _check(t, name, torch.int32, 1)
+    _check(block_base, "block_base", torch.int32, 2)
+    _check_k(k, length)
+    n_blocks, n_bins = block_base.shape
+    if (bin_count.shape[0] != n_bins or n_bins != n_buckets >> shift
+            or -(-words.shape[0] // rows_per_block) != n_blocks):
+        raise ValueError(f"{n_blocks} x {n_bins} blocks x bins do not fit "
+                         f"{words.shape[0]} rows of {rows_per_block} and "
+                         f"{n_buckets} >> {shift} buckets")
+    extra = () if valid is None else (valid,)
+    kw = dict(length=length, k=k, seed=seed, n_buckets=n_buckets,
+              shift=shift, rows_per_block=rows_per_block,
+              canonical=canonical, vlen=vlen, vbytes=vbytes)
+    if not _route(bin_count, block_base, counts, words, *extra):
+        return fp_bin_count_plain(bin_count, block_base, counts, words, **kw)
+    _build.check(_build.lib().fp_bin_count_launch(
+        *_batch_args(words, vlen, vbytes, length, k, canonical), n_buckets,
+        seed & 0xFFFFFFFF, shift, n_bins, n_blocks, rows_per_block,
+        bin_count.data_ptr(), block_base.data_ptr(), counts.data_ptr(),
+        counts.shape[0] - 1, _stream(words)), "fp_bin_count_kernel launch")
+    LAUNCHES["fp_bin_count_kernel"] += 1
+    return bin_count
+
+
+def bin_scan_plain(bin_count: torch.Tensor,
+                   bin_start: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`bin_scan`."""
+    bin_start[0] = 0
+    bin_start[1:] = bin_count.cumsum(0)
+    bin_count.zero_()
+    return bin_start
+
+
+def bin_scan(bin_count: torch.Tensor, bin_start: torch.Tensor) -> torch.Tensor:
+    """``bin_start`` int32 ``[n_bins + 1]`` = the exclusive prefix sums of
+    ``bin_count`` int32 ``[n_bins]`` and their total; zeroes
+    ``bin_count`` for the next batch."""
+    _check(bin_count, "bin_count", torch.int32, 1)
+    _check(bin_start, "bin_start", torch.int32, 1)
+    if bin_start.shape[0] != bin_count.shape[0] + 1:
+        raise ValueError("bin_start must hold one entry more than bin_count")
+    if not _route(bin_count, bin_start):
+        return bin_scan_plain(bin_count, bin_start)
+    _build.check(_build.lib().bin_scan_launch(
+        bin_count.device.index, bin_count.data_ptr(), bin_count.shape[0],
+        bin_start.data_ptr(), _stream(bin_count)), "bin_scan_kernel launch")
+    LAUNCHES["bin_scan_kernel"] += 1
+    return bin_start
+
+
+def fp_bin_scatter_plain(pairs, bin_start, block_base, words, *, length, k,
+                         seed, n_buckets, shift, rows_per_block,
+                         canonical=False, vlen=None, vbytes=None):
+    """Plain twin of :func:`fp_bin_scatter`: inside a block's range of a
+    bin the windows keep row-major order (the kernel's order is the
+    atomics' order)."""
+    n_bins = block_base.shape[1]
+    cells, fps, bks, _ = _binned(words, vlen, vbytes, length, k, seed,
+                                 n_buckets, canonical, shift,
+                                 rows_per_block, n_bins)
+    order = torch.argsort(cells, stable=True)
+    cells = cells[order]
+    first = torch.searchsorted(cells, cells, right=False)
+    rank = torch.arange(cells.shape[0], device=cells.device) - first
+    pos = (bin_start[:-1].to(torch.int64)[cells % n_bins]
+           + block_base.reshape(-1).to(torch.int64)[cells] + rank)
+    pairs[pos, 0] = fps[order]
+    pairs[pos, 1] = bks[order]
+    return pairs
+
+
+def fp_bin_scatter(pairs: torch.Tensor, bin_start: torch.Tensor,
+                   block_base: torch.Tensor, words: torch.Tensor, *,
+                   length: int, k: int, seed: int, n_buckets: int,
+                   shift: int, rows_per_block: int, canonical: bool = False,
+                   vlen: Optional[torch.Tensor] = None,
+                   vbytes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Second pass of the binned count: write every valid window's
+    ``(fp, bucket)`` into ``pairs`` int32 ``[>= bin_start[-1], 2]`` in bin
+    order, at ``bin_start[bin] + block_base[block, bin]`` plus its rank
+    among its block's windows of that bin.  The same batch and blocks as
+    :func:`fp_bin_count`."""
+    valid = _payload(words, vlen, vbytes, length)
+    _check(pairs, "pairs", torch.int32, 2)
+    _check(bin_start, "bin_start", torch.int32, 1)
+    _check(block_base, "block_base", torch.int32, 2)
+    _check_k(k, length)
+    n_blocks, n_bins = block_base.shape
+    if (bin_start.shape[0] != n_bins + 1 or pairs.shape[1] != 2
+            or n_bins != n_buckets >> shift
+            or -(-words.shape[0] // rows_per_block) != n_blocks):
+        raise ValueError("pairs, bin_start and block_base do not fit the "
+                         "batch")
+    extra = () if valid is None else (valid,)
+    kw = dict(length=length, k=k, seed=seed, n_buckets=n_buckets,
+              shift=shift, rows_per_block=rows_per_block,
+              canonical=canonical, vlen=vlen, vbytes=vbytes)
+    if not _route(pairs, bin_start, block_base, words, *extra):
+        return fp_bin_scatter_plain(pairs, bin_start, block_base, words, **kw)
+    _build.check(_build.lib().fp_bin_scatter_launch(
+        *_batch_args(words, vlen, vbytes, length, k, canonical), n_buckets,
+        seed & 0xFFFFFFFF, shift, n_bins, n_blocks, rows_per_block,
+        bin_start.data_ptr(), block_base.data_ptr(), pairs.data_ptr(),
+        _stream(words)), "fp_bin_scatter_kernel launch")
+    LAUNCHES["fp_bin_scatter_kernel"] += 1
+    return pairs
+
+
+def fp_bin_probe_plain(counts: torch.Tensor, pairs: torch.Tensor,
+                       bin_start: torch.Tensor, fp_table: torch.Tensor, *,
+                       shift: int) -> torch.Tensor:
+    """Plain twin of :func:`fp_bin_probe`, PLAIN_CHUNK_PAIRS at a time."""
+    bucket = fp_table.shape[1]
+    trash = counts.shape[0] - 1
+    for i in range(0, int(bin_start[-1]), PLAIN_CHUNK_PAIRS):
+        p = pairs[i:min(i + PLAIN_CHUNK_PAIRS, int(bin_start[-1]))]
+        _add_ones(counts, lookup_fp_from_prep(fp_table, p[:, 1], p[:, 0],
+                                              bucket), trash)
+    return counts
+
+
+def fp_bin_probe(counts: torch.Tensor, pairs: torch.Tensor,
+                 bin_start: torch.Tensor, fp_table: torch.Tensor, *,
+                 shift: int) -> torch.Tensor:
+    """Last pass of the binned count: look every binned ``(fp, bucket)``
+    pair up in its fingerprint row (the lowest matching lane) and add one to
+    its slot of ``counts``, or to the trash slot ``counts[-1]`` on a miss.
+    A persistent grid walks the bins, staging each bin's rows in shared
+    memory."""
+    _check(counts, "counts", torch.int32, 1)
+    _check(pairs, "pairs", torch.int32, 2)
+    _check(bin_start, "bin_start", torch.int32, 1)
+    _check(fp_table, "fp_table", torch.int32, 2)
+    n_buckets, bucket = fp_table.shape
+    n_bins = bin_start.shape[0] - 1
+    if counts.shape[0] != n_buckets * bucket + 1:
+        raise ValueError(f"counts has {counts.shape[0]} entries, want "
+                         f"{n_buckets * bucket + 1}")
+    if n_bins != n_buckets >> shift or n_bins << shift != n_buckets:
+        raise ValueError(f"{n_bins} bins do not tile {n_buckets} buckets "
+                         f"at shift {shift}")
+    if not _route(counts, pairs, bin_start, fp_table):
+        return fp_bin_probe_plain(counts, pairs, bin_start, fp_table,
+                                  shift=shift)
+    vec = bucket % 4 == 0 and fp_table.data_ptr() % 16 == 0
+    _build.check(_build.lib().fp_bin_probe_launch(
+        counts.device.index, pairs.data_ptr(), bin_start.data_ptr(), n_bins,
+        fp_table.data_ptr(), bucket, shift, fp_bin_stride(bucket, shift, vec),
+        int(vec), counts.data_ptr(), counts.shape[0] - 1, _stream(counts)),
+        "fp_bin_probe_kernel launch")
+    LAUNCHES["fp_bin_probe_kernel"] += 1
+    return counts
+
+
 def count_fp_plain(counts: torch.Tensor, words: torch.Tensor,
                    fp_table: torch.Tensor, *, length: int, k: int, seed: int,
                    canonical: bool = False,
@@ -195,9 +491,8 @@ def count_fp_plain(counts: torch.Tensor, words: torch.Tensor,
                    vbytes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain twin of :func:`count_fp`, in row chunks of PLAIN_CHUNK_ROWS."""
     n_buckets, bucket = fp_table.shape
-    for codes in _chunks(words, vlen, vbytes, length):
-        b, fp = probe_prep_plain(codes, k=k, n_buckets=n_buckets, seed=seed,
-                                 canonical=canonical)
+    for _, b, fp in _valid_windows(words, vlen, vbytes, length, k, seed,
+                                   n_buckets, canonical):
         _add_ones(counts, lookup_fp_from_prep(fp_table, b, fp, bucket),
                   n_buckets * bucket)
     return counts
@@ -206,7 +501,8 @@ def count_fp_plain(counts: torch.Tensor, words: torch.Tensor,
 def count_fp(counts: torch.Tensor, words: torch.Tensor,
              fp_table: torch.Tensor, *, length: int, k: int, seed: int,
              canonical: bool = False, vlen: Optional[torch.Tensor] = None,
-             vbytes: Optional[torch.Tensor] = None) -> torch.Tensor:
+             vbytes: Optional[torch.Tensor] = None,
+             scratch: Optional[FpScratch] = None) -> torch.Tensor:
     """Add one read batch into slot-space ``counts`` IN PLACE.
 
     Args:
@@ -219,8 +515,11 @@ def count_fp(counts: torch.Tensor, words: torch.Tensor,
       vlen: uint16 ``[B]`` valid prefix lengths, or
       vbytes: uint8 ``[B, ceil(L/8)]`` LSB-first validity bits; neither
         for raw codes.
+      scratch: the buffers of the binned kernels (a caller that counts many
+        batches keeps one); a fresh one when None.
 
-    Returns ``counts``.
+    On a CUDA device: :func:`fp_bin_count`, :func:`bin_scan`,
+    :func:`fp_bin_scatter`, :func:`fp_bin_probe`.  Returns ``counts``.
     """
     valid = _payload(words, vlen, vbytes, length)
     _check(fp_table, "fp_table", torch.int32, 2)
@@ -237,13 +536,94 @@ def count_fp(counts: torch.Tensor, words: torch.Tensor,
         return count_fp_plain(counts, words, fp_table, length=length, k=k,
                               seed=seed, canonical=canonical, vlen=vlen,
                               vbytes=vbytes)
-    lib = _build.lib()
-    _build.check(lib.count_fp_launch(
+    n_rows = words.shape[0]
+    if n_rows == 0:
+        return counts
+    shift = fp_bin_shift(n_buckets, bucket)
+    n_blocks, per = fp_bin_blocks(n_rows, words.device)
+    bin_count, bin_start, block_base, pairs = (scratch or FpScratch()).buffers(
+        words.device, n_buckets >> shift, n_blocks,
+        n_rows * (length - k + 1))
+    kw = dict(length=length, k=k, seed=seed, n_buckets=n_buckets,
+              shift=shift, rows_per_block=per, canonical=canonical,
+              vlen=vlen, vbytes=vbytes)
+    fp_bin_count(bin_count, block_base, counts, words, **kw)
+    bin_scan(bin_count, bin_start)
+    fp_bin_scatter(pairs, bin_start, block_base, words, **kw)
+    return fp_bin_probe(counts, pairs, bin_start, fp_table, shift=shift)
+
+
+def fp_bin_parity(words: torch.Tensor, fp_table: torch.Tensor, *,
+                  length: int, k: int, seed: int, canonical: bool = False,
+                  vlen: Optional[torch.Tensor] = None,
+                  vbytes: Optional[torch.Tensor] = None) -> dict:
+    """Each binned kernel against its plain twin on the same inputs:
+    ``{kernel name: max |kernel - plain|}`` over what it writes.  The bin
+    totals, bin starts, trash slot and probe counts must be equal; the
+    pairs, as a multiset within each bin (the kernels' order inside a bin is
+    the order of their atomics, and a wrong block offset would overwrite
+    pairs); the probe runs both on the plain scatter's pairs."""
+    dev = words.device
+    n_buckets, bucket = fp_table.shape
+    shift = fp_bin_shift(n_buckets, bucket)
+    n_bins = n_buckets >> shift
+    n_blocks, per = fp_bin_blocks(words.shape[0], dev)
+    kw = dict(length=length, k=k, seed=seed, n_buckets=n_buckets,
+              shift=shift, rows_per_block=per, canonical=canonical,
+              vlen=vlen, vbytes=vbytes)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    def err(a, b):
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        return int(d.max()) if d.numel() else 0
+
+    bc, bb, c = zeros(n_bins), zeros(n_blocks, n_bins), zeros(
+        n_buckets * bucket + 1)
+    pbc, pbb, pc = bc.clone(), bb.clone(), c.clone()
+    fp_bin_count(bc, bb, c, words, **kw)
+    fp_bin_count_plain(pbc, pbb, pc, words, **kw)
+    out = {"fp_bin_count_kernel": max(err(bc, pbc), err(c, pc))}
+    bs, pbs = zeros(n_bins + 1), zeros(n_bins + 1)
+    bin_scan(bc, bs)
+    bin_scan_plain(pbc, pbs)
+    out["bin_scan_kernel"] = max(err(bs, pbs), err(bc, pbc))
+    n = int(pbs[-1])
+    pairs, ppairs = zeros(max(n, 1), 2), zeros(max(n, 1), 2)
+    fp_bin_scatter(pairs, bs, bb, words, **kw)
+    fp_bin_scatter_plain(ppairs, pbs, pbb, words, **kw)
+
+    def keys(p):
+        p = p[:n].to(torch.int64)
+        return torch.sort((p[:, 1] << 32) | (p[:, 0] & 0xFFFFFFFF)).values
+
+    pos = torch.arange(n, device=dev)
+    in_bin = (pairs[:n, 1] >> shift).to(torch.int64) == (
+        torch.searchsorted(pbs.to(torch.int64), pos, right=True) - 1)
+    out["fp_bin_scatter_kernel"] = (err(keys(pairs), keys(ppairs))
+                                    if bool(in_bin.all()) else 1 << 62)
+    c1, c2 = c.clone(), c.clone()
+    fp_bin_probe(c1, ppairs, pbs, fp_table, shift=shift)
+    fp_bin_probe_plain(c2, ppairs, pbs, fp_table, shift=shift)
+    out["fp_bin_probe_kernel"] = err(c1, c2)
+    return out
+
+
+def count_fp_rowwise(counts: torch.Tensor, words: torch.Tensor,
+                     fp_table: torch.Tensor, *, length: int, k: int,
+                     seed: int, canonical: bool = False,
+                     vlen: Optional[torch.Tensor] = None,
+                     vbytes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The one-kernel design this module had before the binned one
+    (``count_fp_kernel``: every window of the padded rows hashed in shared
+    memory, each warp probing its 32 windows' rows one after another), kept
+    to time the two against each other; CUDA tensors only."""
+    n_buckets, bucket = fp_table.shape
+    _build.check(_build.lib().count_fp_launch(
         *_batch_args(words, vlen, vbytes, length, k, canonical),
         fp_table.data_ptr(), n_buckets, bucket, seed & 0xFFFFFFFF,
-        counts.data_ptr(),
-        torch.cuda.current_stream(words.device).cuda_stream),
-        "count_fp_kernel launch")
+        counts.data_ptr(), _stream(words)), "count_fp_kernel launch")
     LAUNCHES["count_fp_kernel"] += 1
     return counts
 

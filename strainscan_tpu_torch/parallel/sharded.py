@@ -35,14 +35,15 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from strainscan_tpu.index.hashtable import BUCKET, KmerTable, build_fp_shards
+from strainscan_tpu_torch.index.hashtable import (BUCKET, KmerTable,
+                                                  build_fp_shards)
 from strainscan_tpu_torch.device import resolve_device
 from strainscan_tpu_torch.kmer.device import from_u32
 from strainscan_tpu_torch.ops import l2
 from strainscan_tpu_torch.ops.count import (Payload, host_tensor,
                                             pack_payload, pad_invalid_rows,
                                             shape_batch)
-from strainscan_tpu_torch.ops.probe import count_exact, count_fp
+from strainscan_tpu_torch.ops.probe import FpScratch, count_exact, count_fp
 from strainscan_tpu_torch.parallel import distributed as dist
 
 
@@ -299,6 +300,7 @@ class ShardedCountPipeline:
         self._totals: Optional[list] = None     # [data][index] accumulators
         self._shape: Optional[tuple] = None
         self._vm_ident: Optional[bool] = None
+        self._scratch = FpScratch()              # per device, reused
 
     def _ensure_device_state(self) -> None:
         if self._fp_dev is None:
@@ -345,6 +347,7 @@ class ShardedCountPipeline:
                                  self._fp_dev[ii, str(dev)], length=cols,
                                  k=st.k, seed=st.seed,
                                  canonical=self.canonical,
+                                 scratch=self._scratch,
                                  **({} if valid is None else {form: valid}))
 
     def add_batch(self, codes: np.ndarray) -> None:

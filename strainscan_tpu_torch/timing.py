@@ -6,11 +6,8 @@ The counterpart of ``strainscan_tpu/utils/profiling.py``.  With
 and writes one Chrome trace per phase name, ``<dir>/<name>.pt.trace.json``
 (a name such as ``identify/count`` makes a subdirectory).  Two profilers
 cannot run at once in a process, so a phase that opens while a trace is
-running only times.  A failing export raises.
-
-The shared host code of ``strainscan_tpu`` (the DB build) has its own hook,
-which imports jax when the variable is set; the port runs it under
-:func:`without_jax_trace`.
+running only times (the build's ``tree_build/hierarchy`` inside
+``tree_build``).  A failing export raises.
 """
 
 from __future__ import annotations
@@ -89,17 +86,3 @@ def phase_acc(name: str):
     yield
     PHASE_TIMES[name] = PHASE_TIMES.get(name, 0.0) + (time.perf_counter() - t0)
 
-
-@contextlib.contextmanager
-def without_jax_trace():
-    """Run shared ``strainscan_tpu`` host code with ``STRAINSCAN_TRACE_DIR``
-    removed from the environment, restored afterwards: that code's phase
-    hook imports jax, which a GPU host lacks, and nests ``jax.profiler``
-    traces, which cannot nest.  Wrap the call in a :func:`phase` to trace
-    it once with torch.profiler instead."""
-    saved = os.environ.pop(TRACE_ENV, None)
-    try:
-        yield
-    finally:
-        if saved is not None:
-            os.environ[TRACE_ENV] = saved

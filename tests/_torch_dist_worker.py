@@ -7,7 +7,7 @@ Joins the gloo process group, then either counts its share of the read
 batches against the keys' table (``count``: writes the merged counts, and
 whether merging int32 maxima raises OverflowError, to ``<out>.npz``) or runs
 the whole identify pipeline on the CPU (``identify``: writes its reports
-under ``<out>``).  Imports no jax.
+under ``<out>``).  Imports neither jax nor the JAX package.
 """
 
 import os
@@ -23,12 +23,12 @@ def main():
     import torch
 
     torch.set_num_threads(1)
-    from strainscan_tpu.config import IdentifyConfig
+    from strainscan_tpu_torch.config import IdentifyConfig
     from strainscan_tpu_torch.parallel import distributed as dist
 
     dist.initialize(coord, num_processes=int(n), process_id=int(pid))
     if mode == "count":
-        from strainscan_tpu.index.hashtable import KmerTable
+        from strainscan_tpu_torch.index.hashtable import KmerTable
         from strainscan_tpu_torch.identify.count import count_sample
 
         keys = np.load(src)["keys"]

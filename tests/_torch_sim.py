@@ -6,8 +6,9 @@ import numpy as np
 import pytest
 import torch
 
-from strainscan_tpu.build.pipeline import build_database
-from strainscan_tpu.config import BuildConfig
+from strainscan_tpu_torch.build.pipeline import build_database
+from strainscan_tpu_torch.config import BuildConfig
+from strainscan_tpu_torch.index.hashtable import FpTable, KmerTable
 
 COMP = str.maketrans("ACGT", "TGCA")
 
@@ -21,6 +22,21 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def port_kmer_table(t):
+    """The port's KmerTable holding the arrays of ``t``, a KmerTable of the
+    JAX package: the two classes are copies, and neither takes the other."""
+    return KmerTable(key_hi=t.key_hi, key_lo=t.key_lo, val=t.val,
+                     n_buckets=t.n_buckets, max_probe=t.max_probe,
+                     n_keys=t.n_keys, k=t.k)
+
+
+def port_fp_table(t):
+    """The port's FpTable holding the arrays of ``t``, an FpTable of the JAX
+    package."""
+    return FpTable(fp=t.fp, val=t.val, n_buckets=t.n_buckets,
+                   bucket=t.bucket, seed=t.seed, n_keys=t.n_keys, k=t.k)
 
 
 def write_fa(path, name, seq):

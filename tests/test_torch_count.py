@@ -11,7 +11,7 @@ import torch
 
 from strainscan_tpu.config import IdentifyConfig
 from strainscan_tpu.identify.count import count_sample as count_sample_jax
-from strainscan_tpu.index.hashtable import FpTable, KmerTable
+from strainscan_tpu.index.hashtable import KmerTable
 from strainscan_tpu.kmer import pack
 from strainscan_tpu.ops.count import CountPipeline as JaxPipeline
 from strainscan_tpu_torch.identify.count import count_sample
@@ -21,6 +21,7 @@ from strainscan_tpu_torch.ops import probe
 from strainscan_tpu_torch.ops.count import CountPipeline, shape_batch
 
 from _torch_sim import one_torch_thread  # noqa: F401 (autouse fixture)
+from _torch_sim import port_kmer_table
 
 CPU = torch.device("cpu")
 K = 31
@@ -46,7 +47,8 @@ def _reads(rng, genome, n, length, read_len):
 
 def _both(table, batches, k=K, canonical=False):
     jp = JaxPipeline(table, canonical=canonical, pallas=False)
-    tp = CountPipeline(fp_table_of(table), CPU, canonical=canonical)
+    tp = CountPipeline(fp_table_of(port_kmer_table(table)), CPU,
+                       canonical=canonical)
     for b in batches:
         jp.add_batch(b)
         tp.add_batch(b)
@@ -84,7 +86,7 @@ def test_count_pipeline_equals_jax(case):
 def test_vbytes_and_vlen_forms_both_used():
     rng = np.random.default_rng(3)
     genome, table = _genome_table(rng)
-    pipe = CountPipeline(fp_table_of(table), CPU)
+    pipe = CountPipeline(fp_table_of(port_kmer_table(table)), CPU)
     clean = _reads(rng, genome, 16, 90, 80)
     dirty = clean.copy()
     dirty[0, 10] = 4
@@ -122,7 +124,7 @@ def test_counts_above_65535_and_host_oracle():
     genome, table = _genome_table(rng, glen=500)
     read = _reads(rng, genome, 1, 64, 60)
     codes = np.repeat(read, 70_000, axis=0)
-    fpt = fp_table_of(table)
+    fpt = fp_table_of(port_kmer_table(table))
     pipe = CountPipeline(fpt, CPU)
     pipe.add_batch(codes)
     ids = pipe.finish()
@@ -143,7 +145,7 @@ def test_count_plain_chunks_agree():
     """The plain count's row chunking does not change the counts."""
     rng = np.random.default_rng(6)
     genome, table = _genome_table(rng)
-    fpt = fp_table_of(table)
+    fpt = fp_table_of(port_kmer_table(table))
     codes = _reads(rng, genome, 50, 96, 90)
     words, _ = pack.bitpack_codes(codes)
     vlen = torch.from_numpy(pack.valid_prefix_lens(codes))
@@ -175,7 +177,8 @@ def test_count_sample_equals_jax(tmp_path, kind):
                 seq = "".join("ACGT"[c] for c in genome[s:s + read_len])
                 f.write(f"@r{i}\n{seq}\n+\n{'I' * read_len}\n")
     cfg = IdentifyConfig(read_batch=128, max_read_len=128)
-    got = count_sample(fp_table_of(table), str(fq), CPU, cfg)
+    got = count_sample(fp_table_of(port_kmer_table(table)), str(fq), CPU,
+                       cfg)
     want = count_sample_jax(table, str(fq), cfg)
     np.testing.assert_array_equal(got, want)
     assert (got.sum() > 0) == (kind == "reads")
@@ -184,7 +187,7 @@ def test_count_sample_equals_jax(tmp_path, kind):
 def test_fp_table_to_device_cached_per_device():
     rng = np.random.default_rng(9)
     _, table = _genome_table(rng, glen=400)
-    fpt = FpTable.from_kmer_table(table)
+    fpt = fp_table_of(port_kmer_table(table))
     a = CountPipeline(fpt, CPU).table
     b = CountPipeline(fpt, torch.device("cpu")).table
     assert a is b

@@ -3,7 +3,7 @@
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere
 (the CUDA kernels have no CPU mode).  Run them on a GPU host with
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` (tests/conftest.py
-imports jax, which a GPU host need not have).
+imports jax, which a GPU host need not have); they import only the port.
 
 Tolerance: none; buckets, fingerprints and counts are integers and must
 be equal.
@@ -15,15 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from strainscan_tpu.build.pipeline import build_database
-from strainscan_tpu.config import BuildConfig, IdentifyConfig
-from strainscan_tpu.index.hashtable import FpTable, KmerTable
-from strainscan_tpu.kmer import pack
-from strainscan_tpu_torch.index.hashtable import (fp_table_to_device,
+from strainscan_tpu_torch.bench.count import host_window_keys
+from strainscan_tpu_torch.build.pipeline import build_database
+from strainscan_tpu_torch.config import BuildConfig, IdentifyConfig
+from strainscan_tpu_torch.identify.pipeline import run_identify
+from strainscan_tpu_torch.index.hashtable import (FpTable, KmerTable,
+                                                  fp_table_to_device,
                                                   kmer_table_to_device)
+from strainscan_tpu_torch.kmer import pack
 from strainscan_tpu_torch.kmer.device import from_u32
 from strainscan_tpu_torch.ops import gather, probe
-from strainscan_tpu_torch.identify.pipeline import run_identify
 from strainscan_tpu_torch.parallel import (ShardedCountPipeline, ShardedTable,
                                            make_mesh, sharded_count)
 
@@ -90,24 +91,102 @@ def _batch(rng, genome, form, rows=3001, length=160):
     return codes, from_u32(words), {form: torch.from_numpy(valid)}
 
 
+FP_KERNELS = ("fp_bin_count_kernel", "bin_scan_kernel",
+              "fp_bin_scatter_kernel", "fp_bin_probe_kernel")
+
+
+def _host_oracle(fpt, codes, canonical=False):
+    """Slot counts of a batch by FpTable.lookup_host + bincount, the trash
+    slot holding every window that is invalid or misses."""
+    keys, valid = host_window_keys(codes, 31)
+    q = keys[valid]
+    if canonical:
+        q = pack.canonical_packed(q, 31)
+    slots = fpt.lookup_host(q)
+    want = np.bincount(slots[slots >= 0], minlength=fpt.n_slots + 1)
+    want[-1] = keys.size - int((slots >= 0).sum())
+    return want
+
+
 @pytest.mark.parametrize("form", ["vlen", "vbytes", "codes"])
 def test_count_fp_kernel_equals_plain(dev, form):
+    """The binned count_fp: its four kernels once each, the counts equal to
+    count_fp_plain and to the host oracle, trash slot included."""
     rng = np.random.default_rng(1)
     genome, keys = _genome_keys(rng)
     fpt = FpTable.build(keys, k=31)
     table = fp_table_to_device(fpt, dev)
-    _, reads, valid = _batch(rng, genome, form)
+    codes, reads, valid = _batch(rng, genome, form)
     reads = reads.to(dev)
     valid = {f: v.to(dev) for f, v in valid.items()}
     c1 = torch.zeros(fpt.n_slots + 1, dtype=torch.int32, device=dev)
     c2 = c1.clone()
+    before = {n: probe.LAUNCHES[n] for n in FP_KERNELS}
     probe.count_fp(c1, reads, table.fp, length=160, k=31, seed=fpt.seed,
                    **valid)
     probe.count_fp_plain(c2, reads, table.fp, length=160, k=31,
                          seed=fpt.seed, **valid)
     torch.cuda.synchronize()
+    assert {n: probe.LAUNCHES[n] - before[n] for n in FP_KERNELS} == \
+        dict.fromkeys(FP_KERNELS, 1)
     assert torch.equal(c1, c2)
+    assert np.array_equal(c1.cpu().numpy(), _host_oracle(fpt, codes))
     assert int(c1[:-1].sum()) > 100_000
+
+
+FP_CASES = ["small_table", "bucket16", "bucket6", "canonical",
+            "all_invalid", "vlen_zero", "mid_read_n", "codes", "unstaged",
+            "bucket32", "one_row"]
+
+
+@pytest.mark.parametrize("case", FP_CASES)
+def test_count_fp_binned_kernels_equal_plain(dev, case, monkeypatch):
+    """Each binned kernel against its plain twin (fp_bin_parity) and
+    count_fp against count_fp_plain and the host oracle, on the edge cases
+    of the design: a table smaller than one bin, bucket widths that are
+    and are not multiples of four, canonical windows, all-invalid batches,
+    rows of valid length 0, mid-read Ns, raw codes, bins too large for
+    shared memory, a one-row batch."""
+    rng = np.random.default_rng(FP_CASES.index(case))
+    genome, keys = _genome_keys(rng, glen=1500 if case == "small_table"
+                                else 20_000)
+    bucket = {"bucket16": 16, "bucket6": 6, "bucket32": 32}.get(case, 64)
+    fpt = FpTable.build(keys, k=31, bucket=bucket)
+    if case == "small_table":
+        assert fpt.n_buckets < 1 << probe.fp_bin_shift(1 << 20, 64)
+    if case == "unstaged":          # 2 bins of 64 buckets x 256 B: 16 KiB
+        monkeypatch.setattr(probe, "MAX_BINS", 2)
+        monkeypatch.setattr(probe, "SLICE_BYTES", 1 << 12)
+    form = {"mid_read_n": "vbytes", "codes": "codes"}.get(case, "vlen")
+    codes, reads, valid = _batch(rng, genome, form)
+    if case in ("all_invalid", "vlen_zero", "one_row"):
+        if case == "one_row":
+            codes = codes[:1]
+        else:
+            codes[::1 if case == "all_invalid" else 3] = 4
+        words, _ = pack.bitpack_codes(codes)
+        reads = from_u32(words)
+        valid = {"vlen": torch.from_numpy(pack.valid_prefix_lens(codes))}
+    reads = reads.to(dev)
+    valid = {f: v.to(dev) for f, v in valid.items()}
+    canonical = case == "canonical"
+    table = fp_table_to_device(fpt, dev)
+    if case == "unstaged":
+        assert probe.fp_bin_stride(bucket, probe.fp_bin_shift(
+            fpt.n_buckets, bucket), True) == 0
+    kw = dict(length=160, k=31, seed=fpt.seed, canonical=canonical, **valid)
+    errs = probe.fp_bin_parity(reads, table.fp, **kw)
+    assert errs == dict.fromkeys(FP_KERNELS, 0)
+    c1 = torch.zeros(fpt.n_slots + 1, dtype=torch.int32, device=dev)
+    c2 = c1.clone()
+    probe.count_fp(c1, reads, table.fp, **kw)
+    probe.count_fp_plain(c2, reads, table.fp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(c1, c2)
+    assert np.array_equal(c1.cpu().numpy(),
+                          _host_oracle(fpt, codes, canonical))
+    if case == "all_invalid":
+        assert int(c1[-1]) == int(c1.sum()) == 3001 * (160 - 31 + 1)
 
 
 @pytest.mark.parametrize("canonical", [False, True])
@@ -185,11 +264,11 @@ def _mesh_counts_equal_single_device(dev, mesh):
     torch.cuda.synchronize()
     assert got.device == mesh.first
     assert torch.equal(got[:kt.n_keys].to(dev), single[:-1])
-    before = probe.LAUNCHES["count_fp_kernel"]
+    before = probe.LAUNCHES["fp_bin_probe_kernel"]
     pipe = ShardedCountPipeline(keys, k=31, mesh=mesh)
     pipe.add_batch(codes)
     pipe.add_batch(codes[:77])
-    assert probe.LAUNCHES["count_fp_kernel"] == before + 2 * mesh.size
+    assert probe.LAUNCHES["fp_bin_probe_kernel"] == before + 2 * mesh.size
     assert np.array_equal(pipe.finish(), 2 * single[:-1].cpu().numpy()
                           - _count_rows(kt, dev, codes[77:]))
 
@@ -237,10 +316,10 @@ def test_multi_gpu_identify_equals_single_device(gpus, tmp_path):
     out1, outn = str(tmp_path / "one"), str(tmp_path / "mesh")
     assert run_identify(fq, "", db, out1, gpus[0], cfg)
     mesh = make_mesh(gpus)
-    before = probe.LAUNCHES["count_fp_kernel"]
+    before = probe.LAUNCHES["fp_bin_probe_kernel"]
     assert run_identify(fq, "", db, outn, mesh, dataclasses.replace(
         cfg, shard_min_kmers=1, shard_min_l2_rows=1))
-    launched = probe.LAUNCHES["count_fp_kernel"] - before
+    launched = probe.LAUNCHES["fp_bin_probe_kernel"] - before
     assert launched > 0 and launched % mesh.size == 0
     got = assert_reports_identical(outn, out1)
     assert any(n.endswith("StrainVote.report") for n in got)

@@ -15,19 +15,19 @@ import numpy as np
 import pytest
 import torch
 
-from strainscan_tpu.build.pipeline import build_database
-from strainscan_tpu.config import BuildConfig, IdentifyConfig
 from strainscan_tpu.identify.count import count_sample as count_sample_jax
 from strainscan_tpu.index.hashtable import KmerTable
 from strainscan_tpu.kmer import pack
+from strainscan_tpu_torch.build.pipeline import build_database
+from strainscan_tpu_torch.config import BuildConfig, IdentifyConfig
 from strainscan_tpu_torch.identify.count import count_sample
 from strainscan_tpu_torch.identify.pipeline import run_identify
 from strainscan_tpu_torch.parallel import distributed as dist
 from strainscan_tpu_torch.parallel.sharded import resolve_mesh
 
 from _torch_sim import (mutate, one_torch_thread,  # noqa: F401
-                        rand_genome, report_tree, sim_reads, write_fa,
-                        write_fq)
+                        port_kmer_table, rand_genome, report_tree,
+                        sim_reads, write_fa, write_fq)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -81,7 +81,7 @@ def test_two_process_counts_match(tmp_path):
 
     cfg = IdentifyConfig(read_batch=256)     # 8 batches: both work
     table = KmerTable.build(keys, k=31)
-    expected = count_sample(table, str(fq), "cpu", cfg)
+    expected = count_sample(port_kmer_table(table), str(fq), "cpu", cfg)
     np.testing.assert_array_equal(expected,
                                   count_sample_jax(table, str(fq), cfg))
     outs = [str(tmp_path / f"out{pid}.npz") for pid in range(2)]

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from strainscan_tpu.index.hashtable import (FpTable, KmerTable, fp2_np,
-                                            lookup_device, mix_seeded_np)
+from strainscan_tpu.index.hashtable import (KmerTable, fp2_np, lookup_device,
+                                            mix_seeded_np)
 from strainscan_tpu.kmer import pack
 from strainscan_tpu.ops.count import CountPipeline as JaxPipeline
+from strainscan_tpu_torch.index.hashtable import FpTable as TFpTable
+from strainscan_tpu_torch.index.hashtable import KmerTable as TKmerTable
 from strainscan_tpu_torch.index.hashtable import (kmer_table_to_device,
                                                   lookup_exact)
 from strainscan_tpu_torch.kmer.device import from_u32
@@ -24,6 +26,7 @@ from strainscan_tpu_torch.ops import probe
 from strainscan_tpu_torch.ops.count import CountPipeline
 
 from _torch_sim import one_torch_thread  # noqa: F401 (autouse fixture)
+from _torch_sim import port_kmer_table
 
 CPU = torch.device("cpu")
 K = 31
@@ -58,7 +61,7 @@ def test_lookup_exact_equals_jax_and_host(load_factor):
     """Hits, misses and (at load 0.9) overflow probes past the home row."""
     rng = np.random.default_rng(1)
     keys = np.unique(rng.integers(0, 1 << 62, size=4000, dtype=np.uint64))
-    table = KmerTable.build(keys, k=K, load_factor=load_factor)
+    table = TKmerTable.build(keys, k=K, load_factor=load_factor)
     assert table.max_probe >= (3 if load_factor > 0.5 else 1)
     q = np.concatenate([keys[::2], rng.integers(0, 1 << 62, size=2000,
                                                 dtype=np.uint64)])
@@ -78,7 +81,7 @@ def test_lookup_exact_equals_jax_and_host(load_factor):
 def test_kmer_table_to_device_cached_per_device():
     rng = np.random.default_rng(2)
     _, keys = _genome_keys(rng, glen=500)
-    table = KmerTable.build(keys, k=K)
+    table = TKmerTable.build(keys, k=K)
     a = kmer_table_to_device(table, CPU)
     assert kmer_table_to_device(table, torch.device("cpu")) is a
     assert a.table.dtype == torch.int32
@@ -103,7 +106,7 @@ def test_exact_pipeline_equals_jax(packed, canonical):
     batches[2] = batches[2][:9]
     jp = JaxPipeline(table, canonical=canonical, packed_transfer=packed,
                      probe_mode="exact", pallas=False)
-    tp = CountPipeline(table, CPU, canonical=canonical,
+    tp = CountPipeline(port_kmer_table(table), CPU, canonical=canonical,
                        packed_transfer=packed, probe_mode="exact")
     forms = set()
     for b in batches:
@@ -125,7 +128,7 @@ def test_exact_counts_host_oracle_and_vlen_form():
     the vlen, vbytes and codes forms of count_exact agree."""
     rng = np.random.default_rng(7)
     genome, keys = _genome_keys(rng)
-    table = KmerTable.build(keys, k=K)
+    table = TKmerTable.build(keys, k=K)
     codes = _reads(rng, genome, 50, 96, 90)
     hi, lo, valid = (t.numpy() for t in probe.kdev.extract_kmers(
         torch.from_numpy(codes), K))
@@ -149,7 +152,7 @@ def test_exact_counts_host_oracle_and_vlen_form():
 def test_count_exact_plain_chunks_agree():
     rng = np.random.default_rng(8)
     genome, keys = _genome_keys(rng)
-    table = KmerTable.build(keys, k=K)
+    table = TKmerTable.build(keys, k=K)
     dt = kmer_table_to_device(table, CPU)
     codes = torch.from_numpy(_reads(rng, genome, 50, 96, 90))
     out = []
@@ -178,7 +181,7 @@ def test_forged_fp_stray_is_rejected_by_the_exact_mode():
     the victim key in fp mode and nothing in exact mode."""
     rng = np.random.default_rng(5)
     keys = np.unique(rng.integers(0, 1 << 62, size=2_000, dtype=np.uint64))
-    t = FpTable.build(keys, k=K)
+    t = TFpTable.build(keys, k=K)
     q = np.uint64(0x1EADBEEF12345678)
     assert q not in set(keys.tolist())
     hi, lo = _halves(np.array([q], np.uint64))
@@ -186,7 +189,7 @@ def test_forged_fp_stray_is_rejected_by_the_exact_mode():
     occ = t.val.reshape(t.n_buckets, t.bucket)[b] >= 0
     lane = int(np.nonzero(occ)[0][0])
     victim = int(t.val.reshape(t.n_buckets, t.bucket)[b][lane])
-    forged = FpTable(fp=t.fp.copy(), val=t.val, n_buckets=t.n_buckets,
+    forged = TFpTable(fp=t.fp.copy(), val=t.val, n_buckets=t.n_buckets,
                      bucket=t.bucket, seed=t.seed, n_keys=t.n_keys, k=K)
     forged.fp.reshape(t.n_buckets, t.bucket)[b][lane] = fp2_np(hi, lo)[0]
 
@@ -198,7 +201,7 @@ def test_forged_fp_stray_is_rejected_by_the_exact_mode():
     assert fp_ids[victim] == 1 and fp_ids.sum() == 1, "the stray credits"
 
     kt = KmerTable.build(keys, k=K)
-    ex_pipe = CountPipeline(kt, CPU, probe_mode="exact")
+    ex_pipe = CountPipeline(port_kmer_table(kt), CPU, probe_mode="exact")
     ex_pipe.add_batch(read)
     assert ex_pipe.finish().sum() == 0
     assert int(ex_pipe.counts[-1]) == 40 - K + 1   # every window: trash
@@ -215,7 +218,8 @@ def test_fp_codes_payload_equals_jax(canonical):
     table = KmerTable.build(keys, k=K)
     jp = JaxPipeline(table, canonical=canonical, packed_transfer=False,
                      pallas=False)
-    tp = CountPipeline(table, CPU, canonical=canonical, packed_transfer=False)
+    tp = CountPipeline(port_kmer_table(table), CPU, canonical=canonical,
+                       packed_transfer=False)
     for _ in range(2):
         b = _reads(rng, genome, 64, 90, 80)
         b[::4, 30] = 4
@@ -229,7 +233,7 @@ def test_fp_codes_payload_equals_jax(canonical):
 def test_wrappers_reject_what_the_kernels_do_not_take():
     rng = np.random.default_rng(12)
     _, keys = _genome_keys(rng, glen=500)
-    table = KmerTable.build(keys, k=K)
+    table = TKmerTable.build(keys, k=K)
     dt = kmer_table_to_device(table, CPU)
     codes = torch.from_numpy(np.zeros((4, 40), np.uint8))
     counts = torch.zeros(table.n_keys + 1, dtype=torch.int32)
@@ -243,6 +247,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                           vlen=torch.zeros(4, dtype=torch.uint16),
                           vbytes=torch.zeros((4, 5), dtype=torch.uint8))
     with pytest.raises(TypeError):
-        CountPipeline(FpTable.from_kmer_table(table), CPU, probe_mode="exact")
+        CountPipeline(TFpTable.from_kmer_table(table), CPU,
+                      probe_mode="exact")
     with pytest.raises(ValueError):
         CountPipeline(table, CPU, probe_mode="fast")

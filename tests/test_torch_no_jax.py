@@ -1,57 +1,63 @@
-"""The port imports no jax, and asks for the card or raises.
+"""The port stands alone: it imports neither jax nor the JAX package, and
+asks for the card or raises.
 
-A subprocess installs a meta-path finder that refuses every ``jax``
-import, then imports the port's modules: the host with the card has no
-JAX, so any transitive jax import would break the port there.
+A subprocess installs a meta-path finder that refuses every import of
+``jax`` and of ``strainscan_tpu`` (not ``strainscan_tpu_torch``), then
+imports every module of the port and runs a CPU ``build`` -> ``identify``
+through its CLI: the host with the card has no JAX, so any transitive
+import of either would break the port there.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
 from strainscan_tpu_torch.device import resolve_device
+
+from _torch_sim import mutate, rand_genome, sim_reads, write_fa, write_fq
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCK_JAX = textwrap.dedent("""
     import sys
 
+    def _blocked(name):
+        return (name in ("jax", "strainscan_tpu")
+                or name.startswith(("jax.", "jaxlib", "strainscan_tpu.")))
+
     class _NoJax:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
-                raise ImportError(f"jax is blocked: {name}")
+            if _blocked(name):
+                raise ImportError(f"blocked: {name}")
             return None
 
-    for _m in [m for m in sys.modules if m == "jax" or m.startswith(
-            ("jax.", "jaxlib"))]:
+    for _m in [m for m in sys.modules if _blocked(m)]:
         del sys.modules[_m]
     sys.meta_path.insert(0, _NoJax())
 """)
 
-MODULES = [
-    "strainscan_tpu_torch.cli",
-    "strainscan_tpu_torch.identify.pipeline",
-    "strainscan_tpu_torch.identify.vote",
-    "strainscan_tpu_torch.identify.prescan",
-    "strainscan_tpu_torch.identify.count",
-    "strainscan_tpu_torch.ops.enet",
-    "strainscan_tpu_torch.ops.count",
-    "strainscan_tpu_torch.ops.l2",
-    "strainscan_tpu_torch.ops.probe",
-    "strainscan_tpu_torch.parallel",
-    "strainscan_tpu_torch.parallel.sharded",
-    "strainscan_tpu_torch.parallel.distributed",
-    "strainscan_tpu_torch.entry",
-    "strainscan_tpu_torch.bench.count",
-    "strainscan_tpu_torch.bench.probe_study",
-    "strainscan_tpu_torch.ops.gather",
-    "strainscan_tpu_torch.timing",
-]
+
+def port_modules():
+    """Every module of the port, by its dotted name."""
+    pkg = os.path.join(ROOT, "strainscan_tpu_torch")
+    names = []
+    for root, dirs, files in os.walk(pkg):
+        dirs[:] = sorted(d for d in dirs if not d.startswith(("_", ".")))
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), ROOT)[:-3]
+                names.append(rel.replace(os.sep, ".")
+                             .removesuffix(".__init__"))
+    return names
+
+
 
 
 def _run(code):
@@ -59,25 +65,65 @@ def _run(code):
     env.pop("STRAINSCAN_TRACE_DIR", None)
     return subprocess.run([sys.executable, "-c", BLOCK_JAX + code], cwd=ROOT,
                           env=env, capture_output=True, text=True,
-                          timeout=120)
+                          timeout=240)
 
 
 def test_port_imports_without_jax():
+    modules = port_modules()
+    assert "strainscan_tpu_torch.build.pipeline" in modules
+    assert "strainscan_tpu_torch.native" in modules
     code = textwrap.dedent(f"""
         import importlib
-        for name in {MODULES!r}:
+        for name in {modules!r}:
             importlib.import_module(name)
-        assert not any(m == "jax" or m.startswith("jax.")
-                       for m in sys.modules), "jax was imported"
-        try:
-            import strainscan_tpu.ops.count
-        except ImportError:
-            print("BLOCKER_OK")
+        assert not any(_blocked(m) for m in sys.modules), "blocked import"
+        for name in ("strainscan_tpu.config", "jax"):
+            try:
+                importlib.import_module(name)
+            except ImportError:
+                print("BLOCKED", name)
     """)
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    # the blocker really blocks: the JAX package's device module fails
-    assert "BLOCKER_OK" in proc.stdout
+    # the blocker really blocks the JAX package and jax itself
+    assert "BLOCKED strainscan_tpu.config" in proc.stdout
+    assert "BLOCKED jax" in proc.stdout
+
+
+def test_cli_build_identify_under_the_block(tmp_path):
+    """``python -m strainscan_tpu_torch.cli`` builds a DB and identifies a
+    sample on the CPU in a process that can import neither jax nor the JAX
+    package."""
+    rng = np.random.default_rng(5)
+    gdir = tmp_path / "genomes"
+    gdir.mkdir()
+    base = rand_genome(rng, 30_000)
+    strains = {"GA_1": base, "GA_2": mutate(rng, base, 30),
+               "GB_1": rand_genome(rng, 30_000)}
+    for name, seq in strains.items():
+        write_fa(gdir / f"{name}.fa", name, seq)
+    write_fq(tmp_path / "s.fq", sim_reads(rng, strains["GB_1"], 5))
+    db, out = str(tmp_path / "DB"), str(tmp_path / "out")
+    code = textwrap.dedent(f"""
+        import runpy
+        for argv in (["build", "-i", {str(gdir)!r}, "-o", {db!r}],
+                     ["identify", "-i", {str(tmp_path / "s.fq")!r},
+                      "-d", {db!r}, "-o", {out!r}, "--device", "cpu"]):
+            sys.argv = ["strainscan_tpu_torch.cli", *argv]
+            try:
+                runpy.run_module("strainscan_tpu_torch.cli",
+                                 run_name="__main__", alter_sys=True)
+            except SystemExit as e:
+                assert e.code == 0, (argv[0], e.code)
+        assert not any(_blocked(m) for m in sys.modules), "blocked import"
+    """)
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(os.path.join(db, "manifest.json")) as f:
+        assert json.load(f)["n_strains"] == 3
+    with open(os.path.join(out, "final_report.txt")) as f:
+        rows = f.read().splitlines()[1:]
+    assert [r.split("\t")[1] for r in rows] == ["GB_1"]
 
 
 def test_cli_cuda_without_gpu_raises(tmp_path):

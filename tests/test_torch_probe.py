@@ -21,6 +21,7 @@ from strainscan_tpu_torch.kmer import device as tdev
 from strainscan_tpu_torch.ops import probe
 
 from _torch_sim import one_torch_thread  # noqa: F401 (autouse fixture)
+from _torch_sim import port_fp_table
 
 
 def _random_codes(rng, b, length, n_frac=0.05):
@@ -59,7 +60,7 @@ def test_probe_prep_plus_lookup_matches_host_oracle():
         codes[i, :72] = genome[st:st + 72]
     codes[3, 20] = 4
 
-    dt = fp_table_to_device(table, torch.device("cpu"))
+    dt = fp_table_to_device(port_fp_table(table), torch.device("cpu"))
     b, f = probe.probe_prep(torch.from_numpy(codes), k=k,
                             n_buckets=table.n_buckets, seed=table.seed)
     slots = lookup_fp_from_prep(dt.fp, b, f, table.bucket).numpy()
@@ -105,9 +106,10 @@ def test_cpu_tensor_routes_to_plain_twin():
     got = probe.probe_prep(codes, k=21, n_buckets=1 << 8, seed=1)
     want = probe.probe_prep_plain(codes, k=21, n_buckets=1 << 8, seed=1)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert probe.LAUNCHES == {"probe_prep_kernel": 0, "count_fp_kernel": 0,
-                              "count_exact_kernel": 0,
-                              "row_gather_kernel": 0}
+    assert set(probe.LAUNCHES.values()) == {0}
+    assert {"probe_prep_kernel", "fp_bin_count_kernel", "bin_scan_kernel",
+            "fp_bin_scatter_kernel", "fp_bin_probe_kernel",
+            "count_exact_kernel", "row_gather_kernel"} <= set(probe.LAUNCHES)
     with pytest.raises(ValueError):
         probe.probe_prep(codes.to(torch.int32), k=21, n_buckets=1 << 8,
                          seed=1)

@@ -1,13 +1,13 @@
 """The port's opt-in ``torch.profiler`` trace (``STRAINSCAN_TRACE_DIR``).
 
-* ``cli build`` in a process that cannot import jax, with the variable set:
-  the shared builder's own hook would import jax (and nest two
-  ``jax.profiler`` traces), so the port builds with the variable removed
-  and traces the whole build once.  The DB equals an untraced build's.
+* A traced ``build`` writes one trace per build phase (the nested
+  ``tree_build/hierarchy`` only times), through the CLI in a process that
+  can import neither jax nor the JAX package, and through the library; the
+  DB equals an untraced build's.
 * A traced CPU ``identify`` writes one trace per phase, and its reports are
   byte-identical to an untraced run; so does a traced plasmid-mode
-  ``identify`` (whose run builds a DB with the shared builder) in a process
-  that cannot import jax.
+  ``identify`` (whose run builds a DB, traced per build phase too) in a
+  process that can import neither.
 * A phase inside a traced phase only times; a failing export raises.
 """
 
@@ -19,8 +19,9 @@ import textwrap
 
 import pytest
 
-from strainscan_tpu.config import IdentifyConfig
 from strainscan_tpu_torch import timing
+from strainscan_tpu_torch.build.pipeline import build_database
+from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.identify.pipeline import run_identify
 
 from _torch_sim import (assert_reports_identical, e2e_fixture,  # noqa: F401
@@ -29,6 +30,8 @@ from test_torch_no_jax import BLOCK_JAX, ROOT
 
 IDENTIFY_PHASES = ["identify/count", "identify/cst_search",
                    "identify/l2_vote", "identify/load_db"]
+BUILD_PHASES = ["clustering", "distance_matrix", "l2_matrices",
+                "overlap_matrices", "tree_build"]
 
 
 @pytest.fixture(scope="module")
@@ -58,8 +61,7 @@ def test_cli_build_traced_without_jax(fixture, tmp_path):
         from strainscan_tpu_torch import cli
         assert cli.main(["build", "-i", {str(d / "genomes")!r},
                          "-o", {str(out)!r}]) == 0
-        assert not any(m == "jax" or m.startswith("jax.")
-                       for m in sys.modules), "jax was imported"
+        assert not any(_blocked(m) for m in sys.modules), "blocked import"
         import os
         assert os.environ["STRAINSCAN_TRACE_DIR"] == {str(trace_dir)!r}
     """)
@@ -69,16 +71,17 @@ def test_cli_build_traced_without_jax(fixture, tmp_path):
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert _traces(trace_dir) == ["build"]
+    assert _traces(trace_dir) == BUILD_PHASES
     built, want = report_tree(str(out)), report_tree(db_dir)
     assert sorted(built) == sorted(want)
     assert all(built[name] == want[name] for name in want)
 
 
 def test_traced_plasmid_identify_without_jax(fixture, tmp_path):
-    """``identify -p 2`` builds a plasmid DB with the shared builder inside
-    the run: traced, in a process that cannot import jax, its reports equal
-    an untraced run's."""
+    """``identify -p 2`` builds a plasmid DB inside the run: traced, in a
+    process that can import neither jax nor the JAX package, it writes the
+    identify and build phases' traces, and its reports equal an untraced
+    run's."""
     d, db_dir, paths = fixture
     gdir = str(d / "genomes")
     plain, traced = str(tmp_path / "plain"), str(tmp_path / "traced")
@@ -91,8 +94,7 @@ def test_traced_plasmid_identify_without_jax(fixture, tmp_path):
         assert cli.main(["identify", "-i", {paths["single"]!r},
                          "-d", {db_dir!r}, "-o", {traced!r}, "-p", "2",
                          "-r", {gdir!r}, "--device", "cpu"]) == 0
-        assert not any(m == "jax" or m.startswith("jax.")
-                       for m in sys.modules), "jax was imported"
+        assert not any(_blocked(m) for m in sys.modules), "blocked import"
     """)
     env = dict(os.environ, PYTHONPATH=ROOT,
                STRAINSCAN_TRACE_DIR=str(trace_dir))
@@ -100,7 +102,7 @@ def test_traced_plasmid_identify_without_jax(fixture, tmp_path):
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert _traces(trace_dir) == IDENTIFY_PHASES
+    assert _traces(trace_dir) == sorted(IDENTIFY_PHASES + BUILD_PHASES)
     assert_reports_identical(traced, plain)
     assert os.path.exists(os.path.join(traced, "DB_plasmid", "manifest.json"))
 
@@ -145,12 +147,17 @@ def test_failing_export_raises(tmp_path, monkeypatch):
     assert _traces(tmp_path / "ok") == ["y"]
 
 
-def test_without_jax_trace_restores_the_variable(monkeypatch):
-    monkeypatch.setenv(timing.TRACE_ENV, "/nowhere")
-    with timing.without_jax_trace():
-        assert timing.TRACE_ENV not in os.environ
-    assert os.environ[timing.TRACE_ENV] == "/nowhere"
-    monkeypatch.delenv(timing.TRACE_ENV)
-    with timing.without_jax_trace():
-        assert timing.TRACE_ENV not in os.environ
-    assert timing.TRACE_ENV not in os.environ
+def test_traced_build_one_trace_per_phase(fixture, tmp_path, monkeypatch):
+    """The library build, traced: one trace per top-level phase, the nested
+    ``tree_build/hierarchy`` timed only, the DB equal to an untraced
+    build's."""
+    d, db_dir, _ = fixture
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv(timing.TRACE_ENV, str(trace_dir))
+    timing.PHASE_TIMES.pop("tree_build/hierarchy", None)
+    build_database(str(d / "genomes"), str(tmp_path / "DB"))
+    assert _traces(trace_dir) == BUILD_PHASES
+    assert "tree_build/hierarchy" in timing.PHASE_TIMES
+    built, want = report_tree(str(tmp_path / "DB")), report_tree(db_dir)
+    assert sorted(built) == sorted(want)
+    assert all(built[name] == want[name] for name in want)
