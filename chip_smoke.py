@@ -33,9 +33,9 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    events, in turns): end-to-end reads/s of both modes; probe_prep_kernel
    and count_exact_kernel against their plain twins at B = 65,536 x
    L = 150; count_fp at identify's shape (65,536 reads of 150 bp padded to
-   L = 256, vlen) and at L = 150, the binned design against the one-kernel
-   count_fp_kernel and the plain twin, each binned kernel held against its
-   twin there and timed alone.  Every kernel's bound (bytes each read or
+   L = 256, vlen) and at L = 150 against its plain twin, each binned kernel
+   held against its twin there and timed alone, and count_fp at 1, 4 and
+   16 blocks per SM of its count and scatter kernels.  Every kernel's bound (bytes each read or
    written once over 3.35 TB/s, or integer operations over 67 T/s) comes
    from this run's data: the distinct table rows and count sectors the
    windows touch.  The launches of each kernel per 1.2 M-read sample are
@@ -479,9 +479,8 @@ def phase_count(dev, tag: str) -> dict:
 def time_count_fp(dev, tag: str, fpt, table, reads: np.ndarray) -> dict:
     """count_fp at identify's shape (the reads padded to L = MAXLEN, vlen)
     and at L = 150: each binned kernel against its plain twin, then the
-    whole count, binned (global or shared-memory count atomics), against
-    the one-kernel design and the plain twin, in turns; each kernel's time
-    alone and its bound at identify's shape.  Returns the numbers."""
+    whole count against its plain twin, in turns; each kernel's time alone
+    and its bound at identify's shape.  Returns the numbers."""
     import torch
 
     from strainscan_tpu_torch.index.hashtable import lookup_fp_from_prep
@@ -503,29 +502,24 @@ def time_count_fp(dev, tag: str, fpt, table, reads: np.ndarray) -> dict:
         counts = torch.zeros(fpt.n_slots + 1, dtype=torch.int32, device=dev)
         scratch = probe.FpScratch()
         outs = []
-        for fn in (probe.count_fp_plain, probe.count_fp_rowwise,
-                   probe.count_fp):
+        for fn in (probe.count_fp_plain, probe.count_fp):
             counts.zero_()
             fn(counts, words, table.fp, **kw)
             outs.append(counts.clone())
-        check(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2]),
-              f"count_fp designs disagree at L={length}")
+        check(torch.equal(outs[0], outs[1]), f"count_fp != plain at "
+              f"L={length}")
         fns = {
             "plain": (lambda: probe.count_fp_plain(counts, words, table.fp,
                                                    **kw), 3),
-            "rowwise": (lambda: probe.count_fp_rowwise(
-                counts, words, table.fp, **kw), 20),
             "binned": (lambda: probe.count_fp(
                 counts, words, table.fp, scratch=scratch, **kw), 20)}
         ms = {name: [] for name in fns}
-        for name in ("plain", "rowwise", "binned", "binned", "rowwise",
-                     "plain"):
+        for name in ("plain", "binned", "binned", "plain"):
             fn, iters = fns[name]
             ms[name].append(cuda_ms(fn, iters))
         log(f"[count] count_fp at {reads.shape[0]} x {length} (vlen, "
-            f"{READ_LEN} bp reads): binned {ms['binned']} ms, one-kernel "
-            f"count_fp_kernel {ms['rowwise']} ms, plain {ms['plain']} ms "
-            f"[{tag}]")
+            f"{READ_LEN} bp reads): binned {ms['binned']} ms, plain "
+            f"{ms['plain']} ms [{tag}]")
         out[length] = dict(ms=ms, errs=errs)
 
     # each kernel alone at identify's shape, and the bounds from this
@@ -604,8 +598,7 @@ def time_count_fp(dev, tag: str, fpt, table, reads: np.ndarray) -> dict:
         f"{whole_ms} ms by {whole_by} ({whole_b} B: payload {payload_b}, "
         f"{rows} distinct rows of {bucket * 4} B, {sectors} count sectors "
         f"read and written; {n_valid} valid windows); binned "
-        f"{binned} ms = {whole_ms / binned} of the bound; one-kernel "
-        f"{min(out[length]['ms']['rowwise'])} ms [{tag}]")
+        f"{binned} ms = {whole_ms / binned} of the bound [{tag}]")
     return dict(designs=out, stages=stage_ms, bound_ms=whole_ms,
                 bound_by=whole_by, bytes=whole_b)
 
@@ -645,7 +638,7 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
             f"({'cold: includes the table upload' if rep == 0 else 'warm'}) "
             f"[{tag}]")
     launches = probe.LAUNCHES["count_exact_kernel"]
-    check(launches > 0 and probe.LAUNCHES["count_fp_kernel"] == 0,
+    check(launches > 0 and not any(probe.LAUNCHES[n] for n in FP_KERNELS),
           f"exact path launches {dict(probe.LAUNCHES)}")
     log(f"[exact] exact-path kernel launches {dict(probe.LAUNCHES)}")
 

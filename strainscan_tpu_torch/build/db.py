@@ -106,8 +106,8 @@ def save_tree_stage(out_dir: str, cst: CST) -> None:
     table = KmerTable.build(cst.all_kmers, k=cst.k)
     table.save(os.path.join(tdir, "table.npz"))
     # fingerprint-table sidecar: pay the seed search ONCE at build so
-    # cold identify loads read it instead of re-deriving (~10 s at
-    # E. coli scale); loaders fall back to deriving when absent.  The
+    # cold identify loads read it instead of re-deriving it; loaders
+    # fall back to deriving when absent.  The
     # shared content checksum lets the loader reject a sidecar that does
     # not belong to this table.
     from strainscan_tpu_torch.index.hashtable import FpTable, keys_checksum
@@ -238,8 +238,8 @@ def load_manifest(db_dir: str) -> dict:
 # multi-sample loops): keeps the KmerTable OBJECT identity stable so its
 # derived fingerprint table and uploaded device buffers (attached as
 # _fp_cache/_device_cache) are reused — at E. coli scale a cold
-# run_identify spends >100 s reloading npz blobs, rebuilding the fp table
-# and re-uploading ~0.5 GB over the host link.  Callers must treat the
+# run_identify would otherwise reload the npz blobs, rebuild the fp table
+# and upload ~0.5 GB to the device again for every sample.  Callers must treat the
 # returned TreeDB as read-only (the identify pipeline does).
 _TREE_CACHE: dict = {}
 

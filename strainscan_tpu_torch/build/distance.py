@@ -85,8 +85,7 @@ def signature_jaccard(sigs: np.ndarray, block: int = 256) -> np.ndarray:
 
     Exact reformulation of the pairwise equality reduction as two
     matmuls (round-4 VERDICT weak #6 — the blocked O(n^2 m)
-    byte-compare loop was the worst-scaling build stage left, 47.9 s at
-    1647 genomes):
+    byte-compare loop was the worst-scaling build stage left):
 
     * a signature VALUE determines its bucket (``h & (m-1)`` is the
       bucket index), so per-pair match counts are set-intersection

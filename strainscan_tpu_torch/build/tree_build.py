@@ -236,8 +236,8 @@ def build_cst(
     # ONE sort of the full k-mer universe up front; every set op below
     # runs on sorted int32 ids instead of uint64 k-mers, and occurrence
     # counting becomes O(total) array indexing instead of repeated
-    # unique/searchsorted/union over the same values (the round-1
-    # all-singleton stress spent ~80% of tree_build there).  The universe
+    # unique/searchsorted/union over the same values (where an
+    # all-singleton stress test spent most of tree_build).  The universe
     # is closed — Lv|spec covers every k-mer of every member genome, so
     # re-extracted merged leaves always map into it — and the mapping is
     # monotonic, so id order == k-mer order everywhere: node k-mer files,

@@ -8,7 +8,7 @@
 // validity bits) around strainscan_tpu/index/hashtable.py::lookup_device.
 // A plain PyTorch version materialises a [windows, 24] row gather for every
 // probe; the kernel keeps the rows in registers.  Per window:
-//   * the same unpack and window packing as count_fp_kernel (kmer_window.cuh),
+//   * the unpack and window packing of probe_prep_kernel (kmer_window.cuh),
 //     min(fwd, revcomp) with canonical;
 //   * the UNSEEDED bucket hash b = fmix(fmix(hi ^ 0x9E3779B9) ^ lo) & mask;
 //   * for p < max_probe, row (b + p) & mask of the interleaved table
@@ -29,12 +29,13 @@
 //
 // What the design does about it
 // -----------------------------
-// * The block stages its read rows in shared memory once, as count_fp_kernel.
+// * The block stages its read rows in shared memory once, as
+//   probe_prep_kernel does.
 // * One thread per window: each thread reads its whole 96 B row as six 16 B
 //   vector loads (rows are 16 B aligned: 96 = 6 x 16), so a warp has 32
 //   independent row reads in flight and many resident warps hide the latency.
-//   A warp-cooperative probe, as in count_fp_kernel, is left for a later
-//   change if the kernel's time ever matters end to end.
+//   Sorting the windows by table slice first, as count_fp_bins.cu does for
+//   the fingerprint table, is left for a later change.
 // * The misses of 32 windows go to the trash entry in one atomic.
 //
 // The entry point launches on the caller's stream, does not synchronise, and

@@ -1,7 +1,8 @@
-// Device helpers shared by the count kernels (probe_count.cu, count_exact.cu):
-// the 32-bit finalizer of the JAX package's hashes, the reverse complement of
-// a packed k-mer, the packing of one read window, and the staging of a
-// block's read rows into shared memory from any payload form.
+// Device helpers shared by the kernels of probe_count.cu, count_exact.cu and
+// count_fp_bins.cu: the 32-bit finalizer of the JAX package's hashes, the
+// reverse complement of a packed k-mer, the packing of one read window, and
+// the staging of a block's read rows into shared memory from any payload
+// form.
 #pragma once
 
 #include <cstdint>

@@ -97,8 +97,8 @@ class KmerTable:
         key_lo = np.full(cap, _EMPTY32, dtype=np.uint32)
         val = np.full(cap, -1, dtype=np.int32)
 
-        # native sequential builder (strainscan_tpu/native/fastx.c
-        # table_build) — ~100M keys/s; NumPy cascade below is the fallback
+        # native sequential builder (native/fastx.c table_build); the NumPy
+        # cascade below is the fallback
         from strainscan_tpu_torch import native
 
         lib = native.get_lib()
@@ -185,10 +185,8 @@ class KmerTable:
     def interleaved(self) -> np.ndarray:
         """[n_buckets, BUCKET*3] int32 (hi, lo, val interleaved per slot).
 
-        The device-side layout: one bucket probe is ONE row gather of
-        ``3*BUCKET`` contiguous int32s.  On TPU this is ~30x faster than
-        three separate 8-wide gathers — XLA gather cost scales with row
-        count, not row width."""
+        The device-side layout: one bucket probe is ONE read of a
+        ``3*BUCKET``-int32 row (96 B), not three separate 8-wide reads."""
         inter = np.empty((self.n_buckets, BUCKET * 3), dtype=np.int32)
         inter[:, 0::3] = self.key_hi.view(np.int32).reshape(
             self.n_buckets, BUCKET)
@@ -200,10 +198,9 @@ class KmerTable:
     # --------------------------------------------------------------- io
     def save(self, path: str) -> None:
         # occupied-slots-only, UNCOMPRESSED (v2): the dense arrays are 75%
-        # empty sentinels at load factor 0.25 — zlib shrinks them 3.9x but
-        # its inflate dominated the cold identify load (16.6s vs a 2-4s
-        # sparse read + scatter at E. coli scale, worse when the host
-        # throttles); sparse-uncompressed costs ~20B/key (int64 slot —
+        # empty sentinels at load factor 0.25, and inflating compressed
+        # dense arrays dominated the cold identify load in the JAX
+        # package; sparse-uncompressed costs ~20B/key (int64 slot —
         # n_slots exceeds 2^31 above ~134M keys at load 0.25 — + 4B hi +
         # 4B lo + 4B val), comparable to the compressed dense size with
         # no decompress.  load() reads v1 (dense) too.
@@ -226,8 +223,7 @@ class KmerTable:
         """``lazy=True`` defers reading the slot arrays until first use:
         the fp-mode identify hot path never touches them (the probe runs
         on the FpTable sidecar), and at E. coli scale the 572 MB
-        table.npz read + inflate-to-dense is ~10-16 s of pure cold-load
-        latency.  Metadata (n_keys, k, geometry) loads eagerly — npz is
+        table.npz read + inflate-to-dense is the bulk of the cold load.  Metadata (n_keys, k, geometry) loads eagerly — npz is
         a zip, so reading just the 32-byte ``meta`` member is free."""
         z = np.load(path)
         n_buckets, max_probe, n_keys, k = (int(x) for x in z["meta"])
@@ -296,13 +292,11 @@ class _LazyKmerTable(KmerTable):
 
 @dataclasses.dataclass
 class FpTable:
-    """Single-probe fingerprint table — the TPU hot-path index.
+    """Single-probe fingerprint table — the hot-path index.
 
-    The query cost of :class:`KmerTable` is dominated by XLA's gather unit
-    (~150-350M rows/s on v5e regardless of locality), so the probe loop is
-    optimized for *one gather of the narrowest possible row*: each bucket
-    is ``bucket`` consecutive uint32 fingerprints (no keys, no values in
-    the hot row).  Build retries hash seeds until every key fits its home
+    The probe is *one read of the narrowest possible row*: each bucket is
+    ``bucket`` consecutive uint32 fingerprints (no keys, no values in the
+    hot row).  Build retries hash seeds until every key fits its home
     bucket with a bucket-unique fingerprint — queries then need exactly
     one row gather + lane compare.  Hits are counted in *slot space*
     (``bucket_idx * bucket + lane``) and remapped to k-mer ids once per
@@ -384,14 +378,9 @@ class FpTable:
         """Build from unique packed k-mers; retries seeds (then doubles the
         table) until the single-probe invariant holds.
 
-        Geometry default (bucket=64 fingerprints/row = 256B, load 0.5)
-        comes from the measured v5e gather curve
-        (benchmarks/PROBE_STUDY*.json): XLA row gathers cost per ROW, and
-        256B rows run ~2x the rows/s of 64B rows on HBM-resident tables
-        (88M vs 44M rows/s at 512MB), lifting the fused
-        probe+compare+scatter kernel from 30.1 to 44.5M windows/s at
-        E. coli scale (28.6M keys) while halving table bytes vs the old
-        bucket=16 load 0.25."""
+        Geometry default (bucket=64 fingerprints/row = 256B, load 0.5):
+        the JAX package's, chosen there from its own gather study, so both
+        packages build the same table from the same keys."""
         keys_u64 = np.ascontiguousarray(keys_u64, dtype=np.uint64)
         n = int(keys_u64.shape[0])
         if values is None:
@@ -458,8 +447,7 @@ class FpTable:
     # --------------------------------------------------------------- io
     def save(self, path: str, content_csum: int | None = None) -> None:
         """Persist as a DB sidecar so cold identify loads skip the seed
-        search + placement (~10 s at E. coli scale — round-3 VERDICT
-        weak #6).  Stored uncompressed: the dense ``fp`` array (one
+        search + placement (round-3 VERDICT weak #6).  Stored uncompressed: the dense ``fp`` array (one
         contiguous read, no inflate, exactly what ships to the device)
         plus ``slot_of_id`` — ``val`` is their inverse (val[slot_of_id]
         = arange(n_keys), exact because ids are a permutation of

@@ -108,8 +108,8 @@ def decode_kmers(kmers: np.ndarray, k: int) -> np.ndarray:
 
     View the result as ``S{k}`` (``.view(f'S{k}')``) for string rows.  The
     batch counterpart of :func:`decode_kmer` — writing the reference
-    layout's kmer.fa at E. coli scale (28.6M entries) needs this; the
-    scalar loop takes minutes where k shift passes take ~2 s.
+    layout's kmer.fa at E. coli scale (28.6M entries) needs this: k
+    vectorised shift passes in place of a scalar loop per k-mer.
     """
     x = np.asarray(kmers, dtype=np.uint64)
     out = np.empty((x.size, k), dtype=np.uint8)
@@ -135,7 +135,7 @@ def write_kmer_fa(path: str, kmers: np.ndarray, k: int,
 
 
 def sort_unique_u64(arr: np.ndarray) -> np.ndarray:
-    """``np.unique`` for flat uint64 arrays, ~5x faster at the CST
+    """``np.unique`` for flat uint64 arrays, faster at the CST
     builder's id_space scale: ``np.sort`` dispatches to the vectorized
     (AVX) integer sort while ``np.unique``'s flatten+``.sort()`` path
     does not, and the dedup mask is two vector ops.  (A native LSD radix
@@ -282,7 +282,7 @@ def bitpack_codes(codes: np.ndarray, need_vbytes: bool = True):
     ``(words, vbytes)``: ``words`` uint32 [B, ceil(L/16)] with base p in
     bits [2*(p%16), 2*(p%16)+1] of word p//16, and ``vbytes`` uint8
     [B, ceil(L/8)] with validity bit p%8 of byte p//8.  Cuts host->device
-    transfer ~3.5x — the dominant cost on PCIe-attached and tunneled TPUs.
+    bytes by more than three (2 bits + 1 bit per base, against 8).
     """
     b, length = codes.shape
     w = -(-length // 16)
@@ -324,8 +324,7 @@ def bitpack_codes_vlen(codes: np.ndarray):
     is not a contiguous prefix (mid-read N; caller falls back to
     ``bitpack_codes`` + vbytes) or the native library is unavailable.
     Replaces the two-pass ``valid_prefix_lens`` + ``bitpack_codes``
-    NumPy flow on the hot producer path (~70% of host time at 1.2M
-    reads/batch stream)."""
+    NumPy flow on the hot producer path."""
     from strainscan_tpu_torch import native
 
     lib = native.get_lib()
@@ -353,8 +352,7 @@ def valid_prefix_lens(codes: np.ndarray):
 
     Reads are padded to the batch maxlen with invalid code 4 and rarely
     contain Ns, so validity is almost always a prefix run — describable
-    in 2 bytes/row instead of ceil(L/8) vbytes (~27% less h2d traffic on
-    tunneled/PCIe TPUs for 150 bp reads)."""
+    in 2 bytes/row instead of ceil(L/8) vbytes."""
     valid = codes < 4
     lens = valid.sum(axis=1).astype(np.uint16)
     length = codes.shape[1]

@@ -5,7 +5,7 @@
  * zero-copy C data loader: sequences stream through zlib (gzFile reads
  * both plain and gzipped files), bases are encoded A=0 C=1 G=2 T=3 /
  * other=4 straight into a caller-provided [batch, maxlen] uint8 buffer
- * that is shipped to the TPU as-is.  Long reads are split into chunks
+ * that is shipped to the device as-is.  Long reads are split into chunks
  * with a (k-1)-base overlap so no k-mer window is lost.
  *
  * Also provides whole-genome packed-k-mer extraction for DB builds
@@ -377,13 +377,13 @@ int table_build_fp(const uint64_t *keys, const int32_t *values, long long n,
 
 /* Bit-pack an encoded read batch for host->device transfer: 2 bits/base
  * plus 1 validity bit (see strainscan_tpu_torch.kmer.pack.bitpack_codes — this
- * is the same layout, ~10x faster than the NumPy fallback).  codes is
+ * is the same layout, faster than the NumPy fallback).  codes is
  * uint8 [b, length] (0..3 base, >=4 invalid); words uint32 [b, w] with
  * w = ceil(length/16); vbytes uint8 [b, vb] with vb = ceil(length/8). */
 /* Fused 2-bit packing + validity-prefix extraction: ONE pass per row
    producing the exact (words, vlen) payload of the vlen transfer form
-   (kmer/pack.py bitpack_codes + valid_prefix_lens fused; those two
-   NumPy passes were ~70% of the host pipeline at 1.2M reads).
+   (kmer/pack.py bitpack_codes + valid_prefix_lens fused: two NumPy
+   passes of the host pipeline in one).
    Returns 0 when every row's validity is a contiguous prefix; 1 as soon
    as a mid-row invalid code is seen (caller discards and falls back to
    the vbytes form for the whole batch — semantics preserved). */
@@ -444,7 +444,7 @@ void pack_codes(const unsigned char *codes, long long b, int length,
  * Sorted-uint64 set primitives for the CST builder's global id space
  * (build/tree_build.py "id_space" stage).  At E. coli scale the stage
  * binary-searches ~300M uint64 back into a 30M universe; a galloping
- * cursor over the already-sorted per-leaf arrays is ~5x faster and
+ * cursor over the already-sorted per-leaf arrays is faster and
  * verifies the closed-universe invariant for free.
  * ------------------------------------------------------------------ */
 

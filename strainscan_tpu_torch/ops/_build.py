@@ -88,9 +88,6 @@ def lib() -> ctypes.CDLL:
             ll, u = ctypes.c_longlong, ctypes.c_uint32
             so.probe_prep_launch.restype = i
             so.probe_prep_launch.argtypes = [i, p, ll, i, i, i, u, u, p, p, p]
-            so.count_fp_launch.restype = i
-            so.count_fp_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i, i,
-                                           p, u, i, u, p, p]
             so.fp_bin_count_launch.restype = i
             so.fp_bin_count_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i,
                                                i, u, u, i, i, i, i, p, p, p,

@@ -2,7 +2,7 @@
 
 Port of ``strainscan_tpu/ops/count.py::CountPipeline``.  Read batches are
 prepared on the host (:meth:`CountPipeline.prepare_batch`, in the producer
-thread), copied to the device, and counted in place by one kernel per
+thread), copied to the device, and counted in place, one count per
 batch:
 
 * ``probe_mode="fp"`` (default): the binned count

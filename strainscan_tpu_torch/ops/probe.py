@@ -3,9 +3,16 @@
 * :func:`probe_prep` -> ``probe_prep_kernel``: per-window (bucket, fp) of
   uint8 code rows; port of the Pallas kernel
   ``strainscan_tpu/ops/pallas_probe.py::probe_prep``.
-* :func:`count_fp` -> ``count_fp_kernel``: the fused main-path kernel:
-  unpack the 2-bit words, hash every window, probe its fingerprint row and
-  add one to its slot (or to the trash slot) in place.
+* :func:`count_fp`: the main-path count of a read batch into slot-space
+  counts, in place, as four kernels (``csrc/count_fp_bins.cu``):
+  :func:`fp_bin_count` -> ``fp_bin_count_kernel`` (walk each read's valid
+  windows with a rolling key, count them per bin of buckets),
+  :func:`bin_scan` -> ``bin_scan_kernel`` (bin starts),
+  :func:`fp_bin_scatter` -> ``fp_bin_scatter_kernel`` (each window's
+  ``(fp, bucket)`` into bin order) and :func:`fp_bin_probe` ->
+  ``fp_bin_probe_kernel`` (each bin's table rows staged in shared memory,
+  its windows resolved there, one added to the hit slot or to the trash
+  slot).  :func:`fp_bin_parity` holds each against its twin.
 * :func:`count_exact` -> ``count_exact_kernel``: the exact probe mode: the
   same unpack and window packing, then up to ``max_probe`` reads of the
   interleaved exact-table row, and one added to the k-mer's id (or to the
@@ -37,7 +44,7 @@ from strainscan_tpu_torch.ops import _build
 LAUNCHES = {"probe_prep_kernel": 0, "fp_bin_count_kernel": 0,
             "bin_scan_kernel": 0, "fp_bin_scatter_kernel": 0,
             "fp_bin_probe_kernel": 0, "count_exact_kernel": 0,
-            "row_gather_kernel": 0, "count_fp_kernel": 0}
+            "row_gather_kernel": 0}
 
 # rows per chunk of the plain counts: bounds their [rows * M, row] gathers
 # (1.9 GB at 8192 x 226 x 64 int32 plus temporaries)
@@ -608,24 +615,6 @@ def fp_bin_parity(words: torch.Tensor, fp_table: torch.Tensor, *,
     fp_bin_probe_plain(c2, ppairs, pbs, fp_table, shift=shift)
     out["fp_bin_probe_kernel"] = err(c1, c2)
     return out
-
-
-def count_fp_rowwise(counts: torch.Tensor, words: torch.Tensor,
-                     fp_table: torch.Tensor, *, length: int, k: int,
-                     seed: int, canonical: bool = False,
-                     vlen: Optional[torch.Tensor] = None,
-                     vbytes: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The one-kernel design this module had before the binned one
-    (``count_fp_kernel``: every window of the padded rows hashed in shared
-    memory, each warp probing its 32 windows' rows one after another), kept
-    to time the two against each other; CUDA tensors only."""
-    n_buckets, bucket = fp_table.shape
-    _build.check(_build.lib().count_fp_launch(
-        *_batch_args(words, vlen, vbytes, length, k, canonical),
-        fp_table.data_ptr(), n_buckets, bucket, seed & 0xFFFFFFFF,
-        counts.data_ptr(), _stream(words)), "count_fp_kernel launch")
-    LAUNCHES["count_fp_kernel"] += 1
-    return counts
 
 
 # ----------------------------------------------------------- count_exact

@@ -85,4 +85,3 @@ def phase_acc(name: str):
     t0 = time.perf_counter()
     yield
     PHASE_TIMES[name] = PHASE_TIMES.get(name, 0.0) + (time.perf_counter() - t0)
-

@@ -43,10 +43,13 @@ def test_entry_cpu_equals_jax():
 
 
 def test_entry_cuda_without_gpu_raises():
+    """``entry()`` asks for the card unless told otherwise."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError):
         entry.entry("cuda")
+    with pytest.raises(RuntimeError, match="(?i)cuda"):
+        entry.entry()
 
 
 @pytest.mark.parametrize("n", [8, 4, 3])

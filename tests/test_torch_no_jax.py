@@ -58,8 +58,6 @@ def port_modules():
     return names
 
 
-
-
 def _run(code):
     env = dict(os.environ, PYTHONPATH=ROOT)
     env.pop("STRAINSCAN_TRACE_DIR", None)
