@@ -281,9 +281,26 @@ def phase_parity(dev, tag: str) -> dict:
                 errs["probe_prep_kernel"] = max(
                     errs["probe_prep_kernel"], err(b, pb), err(f, pf))
                 n_probe += 1
+    # identify's shape: 150 bases then code-4 padding to L = MAXLEN, and a
+    # B x M that is not a multiple of 4 (the outputs' scalar tail)
+    padded = np.full((BATCH - 3, MAXLEN), 4, np.uint8)
+    padded[:, :READ_LEN] = rng.integers(0, 4, size=(BATCH - 3, READ_LEN))
+    cd = torch.from_numpy(padded).to(dev)
+    for k in PARITY_KS:
+        for canonical in (False, True):
+            kw = dict(k=k, n_buckets=1 << 20, seed=7, canonical=canonical)
+            b, f = probe.probe_prep(cd, **kw)
+            pb, pf = probe.probe_prep_plain(cd, **kw)
+            sync(dev)
+            check(torch.equal(b, pb) and torch.equal(f, pf),
+                  f"probe_prep padded L={MAXLEN} k={k} canonical={canonical}")
+            errs["probe_prep_kernel"] = max(
+                errs["probe_prep_kernel"], err(b, pb), err(f, pf))
+            n_probe += 1
     log(f"[parity] probe_prep_kernel bit-exact in {n_probe} cases "
         f"(B={BATCH}, L in {PARITY_LENGTHS}, k in {PARITY_KS}, canonical "
-        f"on/off) [{tag}]")
+        f"on/off; and {BATCH - 3} reads of {READ_LEN} padded to {MAXLEN}) "
+        f"[{tag}]")
 
     genome = rng.integers(0, 4, size=400_000).astype(np.uint8)
     keys = genome_keys(genome, dev)
@@ -320,31 +337,39 @@ def phase_parity(dev, tag: str) -> dict:
     kt = KmerTable.build(keys, k=K, load_factor=0.9)
     ktab = kmer_table_to_device(kt, dev)
     check(kt.max_probe > 1, "the load-0.9 table must overflow buckets")
-    for name, codes, packed in (("vbytes", dirty, True),
-                                ("codes", dirty, False)):
-        (payload,) = CountPipeline(kt, dev, packed_transfer=packed,
-                                   probe_mode="exact").prepare_batch(codes)
-        check(payload[0] == name, f"payload form {payload[0]} != {name}")
-        words = payload[1].to(dev)
-        valid = {} if payload[2] is None else {name: payload[2].to(dev)}
-        for canonical in (False, True):
-            c1 = torch.zeros(kt.n_keys + 1, dtype=torch.int32, device=dev)
-            c2 = c1.clone()
-            kw = dict(length=156, k=K, max_probe=kt.max_probe,
+    n_exact = 0
+    for length in (READ_LEN, MAXLEN):
+        batch = np.full((BATCH, length), 4, np.uint8)
+        batch[:, :READ_LEN] = reads[:, :READ_LEN]
+        dirty = batch.copy()
+        dirty[::9, 60] = 4
+        cases = exact_payloads(batch, dirty, dev)
+        for (name, words, valid), canonical in (
+                (c, canon) for c in cases for canon in (False, True)):
+            unrolls = ((1, 2, 4) if length == MAXLEN and name == "vbytes"
+                       else (probe.EXACT_UNROLL,))
+            c2 = torch.zeros(kt.n_keys + 1, dtype=torch.int32, device=dev)
+            kw = dict(length=length, k=K, max_probe=kt.max_probe,
                       canonical=canonical, **valid)
-            probe.count_exact(c1, words, ktab.table, **kw)
             probe.count_exact_plain(c2, words, ktab.table, **kw)
-            sync(dev)
-            check(torch.equal(c1, c2),
-                  f"count_exact {name} canonical={canonical} != plain")
-            errs["count_exact_kernel"] = max(errs["count_exact_kernel"],
-                                             err(c1, c2))
-            log(f"[parity] count_exact_kernel {name} canonical={canonical}: "
-                f"bit-exact, {int(c1[:-1].sum())} hits, {int(c1[-1])} trash "
-                f"(table {kt.n_keys} keys, max_probe {kt.max_probe}) [{tag}]")
+            for unroll in unrolls:
+                c1 = torch.zeros_like(c2)
+                with exact_unroll(unroll):
+                    probe.count_exact(c1, words, ktab.table, **kw)
+                sync(dev)
+                n_exact += 1
+                check(torch.equal(c1, c2),
+                      f"count_exact {name} L={length} canonical={canonical} "
+                      f"unroll={unroll} != plain")
+                errs["count_exact_kernel"] = max(errs["count_exact_kernel"],
+                                                 err(c1, c2))
+            log(f"[parity] count_exact_kernel {name} L={length} "
+                f"canonical={canonical} unroll {unrolls}: bit-exact, "
+                f"{int(c1[:-1].sum())} hits, {int(c1[-1])} trash (table "
+                f"{kt.n_keys} keys, max_probe {kt.max_probe}) [{tag}]")
     launches = dict(probe.LAUNCHES)
     want = dict.fromkeys(launches, 0)
-    want.update({"probe_prep_kernel": n_probe, "count_exact_kernel": 4,
+    want.update({"probe_prep_kernel": n_probe, "count_exact_kernel": n_exact,
                  **dict.fromkeys(FP_KERNELS, 6)})   # count_fp + the parity
     check(launches == want, f"parity launches {launches}")
     log(f"[parity] kernel launches {launches}")
@@ -356,6 +381,80 @@ def sync(dev) -> None:
 
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+def parent_probe_prep(codes, *, k: int, n_buckets: int, seed: int,
+                      canonical: bool = False):
+    """The previous probe_prep_kernel design on the same inputs."""
+    import torch
+
+    from strainscan_tpu_torch.ops import _build
+
+    b, length = codes.shape
+    bucket = torch.empty((b, length - k + 1), dtype=torch.int32,
+                         device=codes.device)
+    fp = torch.empty_like(bucket)
+    _build.check(_build.lib().parent_probe_prep_launch(
+        codes.device.index, codes.data_ptr(), b, length, k, int(canonical),
+        n_buckets, seed & 0xFFFFFFFF, bucket.data_ptr(), fp.data_ptr(),
+        torch.cuda.current_stream(codes.device).cuda_stream),
+        "parent probe_prep launch")
+    return bucket, fp
+
+
+def parent_count_exact(counts, words, table, *, length: int, k: int,
+                       max_probe: int, canonical: bool = False, vlen=None,
+                       vbytes=None):
+    """The previous count_exact_kernel design on the same inputs."""
+    import torch
+
+    from strainscan_tpu_torch.ops import _build, probe
+
+    _build.check(_build.lib().parent_count_exact_launch(
+        *probe._batch_args(words, vlen, vbytes, length, k, canonical),
+        table.data_ptr(), table.shape[0], max_probe, counts.shape[0] - 1,
+        counts.data_ptr(), torch.cuda.current_stream(words.device)
+        .cuda_stream), "parent count_exact launch")
+    return counts
+
+
+def exact_payloads(clean: np.ndarray, dirty: np.ndarray, dev) -> list:
+    """A batch of uint8 code rows in the three payload forms the exact
+    count takes, ``[(form, reads, {validity kwarg}), ...]`` on ``dev``:
+    vlen of ``clean`` (every row's validity a prefix), vbytes and raw codes
+    of ``dirty`` (mid-read Ns)."""
+    import torch
+
+    from strainscan_tpu_torch.kmer import pack
+    from strainscan_tpu_torch.kmer.device import from_u32
+
+    words, vbytes = pack.bitpack_codes(dirty)
+    cwords, _ = pack.bitpack_codes(clean)
+    vlen = pack.valid_prefix_lens(clean)
+    check(vlen is not None, "clean rows have prefix validity")
+    return [("vbytes", from_u32(words).to(dev),
+             {"vbytes": torch.from_numpy(vbytes).to(dev)}),
+            ("vlen", from_u32(cwords).to(dev),
+             {"vlen": torch.from_numpy(vlen).to(dev)}),
+            ("codes", torch.from_numpy(dirty).to(dev), {})]
+
+
+class exact_unroll:
+    """``with exact_unroll(u):`` runs count_exact with ``u`` table rows in
+    flight per lane."""
+
+    def __init__(self, unroll: int):
+        self.unroll = unroll
+
+    def __enter__(self):
+        from strainscan_tpu_torch.ops import probe
+
+        self.old, probe.EXACT_UNROLL = probe.EXACT_UNROLL, self.unroll
+
+    def __exit__(self, *exc):
+        from strainscan_tpu_torch.ops import probe
+
+        probe.EXACT_UNROLL = self.old
 
 
 def fp_table(keys: np.ndarray):
@@ -454,25 +553,38 @@ def phase_count(dev, tag: str) -> dict:
     log(f"[count] one batch equals the host oracle ({wkeys.size} windows, "
         f"{int((slots >= 0).sum())} hits)")
 
-    # probe_prep_kernel against its plain twin at B = 65,536 x L = 150
-    codes = torch.from_numpy(np.ascontiguousarray(reads[:BATCH])).to(dev)
+    # probe_prep_kernel against its plain twin and the parent design at
+    # B = 65,536 x L = 150 and with the reads padded to L = MAXLEN
     pkw = dict(k=K, n_buckets=fpt.n_buckets, seed=fpt.seed)
-    ms = {"prep": [], "prep_plain": []}
-    for order in ("plain", "kernel", "kernel", "plain"):
-        if order == "kernel":
-            ms["prep"].append(cuda_ms(
-                lambda: probe.probe_prep(codes, **pkw), 20))
-        else:
-            ms["prep_plain"].append(cuda_ms(
-                lambda: probe.probe_prep_plain(codes, **pkw), 3))
-    log(f"[count] probe_prep_kernel {ms['prep']} ms vs plain "
-        f"{ms['prep_plain']} ms per batch of {BATCH} x {READ_LEN} [{tag}]")
-    m = READ_LEN - K + 1
-    prep_bound = bound_ms(BATCH * READ_LEN + BATCH * m * 8,
-                          BATCH * m * HASH_OPS)
+    prep = {}
+    for length in (READ_LEN, MAXLEN):
+        padded = np.full((BATCH, length), 4, np.uint8)
+        padded[:, :READ_LEN] = reads[:BATCH]
+        codes = torch.from_numpy(padded).to(dev)
+        got, want = probe.probe_prep(codes, **pkw), parent_probe_prep(codes,
+                                                                      **pkw)
+        sync(dev)
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"probe_prep_kernel != the parent design at L={length}")
+        fns = {"kernel": (lambda: probe.probe_prep(codes, **pkw), 20),
+               "parent": (lambda: parent_probe_prep(codes, **pkw), 20),
+               "plain": (lambda: probe.probe_prep_plain(codes, **pkw), 3)}
+        ms = {name: [] for name in fns}
+        for name in ("plain", "parent", "kernel", "kernel", "parent",
+                     "plain"):
+            fn, iters = fns[name]
+            ms[name].append(cuda_ms(fn, iters))
+        m = length - K + 1
+        bound = bound_ms(BATCH * length + BATCH * m * 8,
+                         BATCH * m * HASH_OPS)
+        log(f"[count] probe_prep_kernel at {BATCH} x {length}: {ms['kernel']} "
+            f"ms, parent design {ms['parent']} ms, plain {ms['plain']} ms; "
+            f"bound {bound[0]} ms by {bound[1]} = "
+            f"{bound[0] / min(ms['kernel'])} of the kernel's time [{tag}]")
+        prep[length] = dict(ms=ms, bound=bound)
     fp = time_count_fp(dev, tag, fpt, table, reads[:BATCH])
-    return dict(keys=keys, fpt=fpt, fq=fq, reads=reads, ids=ids, ms=ms,
-                prep_bound=prep_bound, fp=fp,
+    return dict(keys=keys, fpt=fpt, fq=fq, reads=reads, ids=ids, prep=prep,
+                fp=fp,
                 launches_per_sample=launches_per_sample)
 
 
@@ -680,41 +792,103 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
     log(f"[exact] one batch equals KmerTable.lookup_host + bincount "
         f"({wkeys.size} windows, {int((hits >= 0).sum())} hits)")
 
-    # kernel against the plain twin at B = 65,536 x L = 150 (vbytes, the
-    # form the exact mode ships)
-    (payload,) = CountPipeline(kt, dev, probe_mode="exact").prepare_batch(
-        reads[:BATCH])
-    words, valid_t = payload[1].to(dev), payload[2].to(dev)
-    kw = dict(length=READ_LEN, k=K, max_probe=kt.max_probe,
-              **{payload[0]: valid_t})
-    scratch = torch.zeros_like(pipe.counts)
-    ms = {"count_exact": [], "count_exact_plain": []}
-    for order in ("plain", "kernel", "kernel", "plain"):
-        if order == "kernel":
-            ms["count_exact"].append(cuda_ms(lambda: probe.count_exact(
-                scratch, words, table.table, **kw), 20))
-        else:
-            ms["count_exact_plain"].append(cuda_ms(
-                lambda: probe.count_exact_plain(scratch, words, table.table,
-                                                **kw), 3))
-    windows = BATCH * (READ_LEN - K + 1)
-    log(f"[exact] count_exact_kernel {ms['count_exact']} ms vs plain "
-        f"{ms['count_exact_plain']} ms per batch of {BATCH} x {READ_LEN} "
-        f"({payload[0]}); kernel {windows / (min(ms['count_exact']) / 1e3)} "
-        f"windows/s [{tag}]")
-    bound = exact_bound(kt, reads[:BATCH],
-                        words.numel() * 4 + valid_t.numel())
-    log(f"[exact] count_exact_kernel bound {bound[0]} ms by {bound[1]} "
-        f"({bound[2]} B) [{tag}]")
-    return dict(ids=ids, launches=launches, ms=ms, bound=bound,
+    # the kernel against its plain twin and the parent design where the
+    # exact stream runs it (the reads padded to L = MAXLEN, vbytes: what
+    # iter_payloads ships) and at L = 150; each one's bound from this
+    # batch's data
+    timing = {}
+    for length in (MAXLEN, READ_LEN):
+        padded = np.full((BATCH, length), 4, np.uint8)
+        padded[:, :READ_LEN] = reads[:BATCH]
+        (payload,) = CountPipeline(kt, dev, probe_mode="exact") \
+            .prepare_batch(padded)
+        check(payload[0] == "vbytes", f"exact payload form {payload[0]}")
+        words, valid_t = payload[1].to(dev), payload[2].to(dev)
+        kw = dict(length=length, k=K, max_probe=kt.max_probe,
+                  vbytes=valid_t)
+        outs = [torch.zeros_like(pipe.counts) for _ in range(3)]
+        for fn, c in zip((probe.count_exact, probe.count_exact_plain,
+                          parent_count_exact), outs):
+            fn(c, words, table.table, **kw)
+        sync(dev)
+        check(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2]),
+              f"count_exact at L={length}: kernel, plain and parent differ")
+        scratch = outs[0]
+        fns = {
+            "kernel": (lambda: probe.count_exact(scratch, words, table.table,
+                                                 **kw), 20),
+            "parent": (lambda: parent_count_exact(scratch, words, table.table,
+                                                  **kw), 20),
+            "plain": (lambda: probe.count_exact_plain(scratch, words,
+                                                      table.table, **kw), 3)}
+        ms = {name: [] for name in fns}
+        for name in ("plain", "parent", "kernel", "kernel", "parent",
+                     "plain"):
+            fn, iters = fns[name]
+            ms[name].append(cuda_ms(fn, iters))
+        win = exact_windows(kt, padded)
+        bound = exact_bound(kt, win, words.numel() * 4 + valid_t.numel())
+        windows = BATCH * (length - K + 1)
+        log(f"[exact] count_exact_kernel at {BATCH} x {length} (vbytes): "
+            f"{ms['kernel']} ms, parent design {ms['parent']} ms, plain "
+            f"{ms['plain']} ms; {windows / (min(ms['kernel']) / 1e3)} "
+            f"windows/s; bound {bound[0]} ms by {bound[1]} ({bound[2]} B) = "
+            f"{bound[0] / min(ms['kernel'])} of the kernel's time [{tag}]")
+        timing[length] = dict(ms=ms, bound=bound)
+        if length == MAXLEN:
+            timing["parts"] = exact_parts(dev, tag, table.table, kt.n_keys,
+                                          win, min(ms["kernel"]))
+        if length == MAXLEN:   # rows in flight per lane
+            sweep = {}
+            for unroll in (1, 2, 4):
+                with exact_unroll(unroll):
+                    sweep[unroll] = cuda_ms(lambda: probe.count_exact(
+                        scratch, words, table.table, **kw), 20)
+            log(f"[exact] count_exact_kernel at {BATCH} x {length} by table "
+                f"rows in flight per lane: {sweep} ms (the wrapper uses "
+                f"{probe.EXACT_UNROLL}) [{tag}]")
+    return dict(ids=ids, launches=launches, timing=timing,
                 per_sample=launches // COUNT_REPS)
 
 
-def exact_bound(kt, codes: np.ndarray, payload_b: int) -> tuple:
-    """(ms, bound_by, bytes) of count_exact on one batch: the payload, each
-    96 B table row its windows must read (home row on to the row that holds
-    the key; all max_probe rows for a miss) and each 32 B id-count sector
-    its hits touch, read and written."""
+def exact_parts(dev, tag: str, table, n_keys: int, win: dict,
+                kernel_ms: float) -> dict:
+    """Where count_exact's time goes: the batch's first-probe rows read
+    alone (row_gather_kernel over the same 96 B rows, in window order) and
+    its count updates alone (index_add_ of one into each hit id, in window
+    order), beside the whole kernel."""
+    import torch
+
+    from strainscan_tpu_torch.ops import gather
+
+    home = torch.from_numpy(win["home"].astype(np.int32)).to(dev)
+    hit = win["ids"][win["ids"] >= 0]
+    ids = torch.from_numpy(hit.astype(np.int64)).to(dev)
+    ones = torch.ones(ids.shape[0], dtype=torch.int32, device=dev)
+    counts = torch.zeros(n_keys + 1, dtype=torch.int32, device=dev)
+    rows_ms = cuda_ms(lambda: gather.row_gather_xor(table, home, tile=2048,
+                                                    nbuf=16), 20)
+    adds_ms = cuda_ms(lambda: counts.index_add_(0, ids, ones), 20)
+    # the same updates in id order, and grouped by quarter of the id space
+    # (random order inside a quarter, which the L2 can hold)
+    in_order = ids.sort().values
+    quarter = ids[torch.sort(ids // (n_keys // 4 + 1), stable=True).indices]
+    sorted_ms = cuda_ms(lambda: counts.index_add_(0, in_order, ones), 20)
+    quarter_ms = cuda_ms(lambda: counts.index_add_(0, quarter, ones), 20)
+    log(f"[exact] count_exact_kernel's parts at {BATCH} reads: "
+        f"{home.shape[0]} first-probe rows of 96 B alone {rows_ms} ms "
+        f"({home.shape[0] * 96 / rows_ms / 1e9} TB/s of row bytes; "
+        f"row_gather_kernel), {ids.shape[0]} count updates alone {adds_ms} ms "
+        f"in window order, {sorted_ms} ms in id order, {quarter_ms} ms by "
+        f"quarter of the ids (index_add_); the kernel {kernel_ms} ms [{tag}]")
+    return dict(rows_ms=rows_ms, adds_ms=adds_ms, sorted_ms=sorted_ms,
+                quarter_ms=quarter_ms)
+
+
+def exact_windows(kt, codes: np.ndarray) -> dict:
+    """The valid windows of a batch against the exact table (NumPy): their
+    keys, home rows, ids (-1 miss) and the rows each must read (home row on
+    to the row that holds the key; all max_probe rows for a miss)."""
     from strainscan_tpu_torch.index.hashtable import mix_np
 
     keys, valid = host_window_keys(codes)
@@ -728,11 +902,19 @@ def exact_bound(kt, codes: np.ndarray, payload_b: int) -> tuple:
     row_of_id[kt.val[occ]] = occ // 8
     need = np.where(ids >= 0, (row_of_id[np.maximum(ids, 0)] - home)
                     % kt.n_buckets + 1, kt.max_probe)
+    return dict(q=q, home=home, ids=ids, need=need)
+
+
+def exact_bound(kt, win: dict, payload_b: int) -> tuple:
+    """(ms, bound_by, bytes) of count_exact on one batch: the payload, each
+    96 B table row its windows must read and each 32 B id-count sector its
+    hits touch, read and written."""
+    home, ids, need = win["home"], win["ids"], win["need"]
     rows = np.unique(np.concatenate([(home[need > p] + p) % kt.n_buckets
                                      for p in range(kt.max_probe)]))
     sectors = np.unique(ids[ids >= 0] // 8).size
     n_bytes = payload_b + rows.size * 96 + sectors * 64 + 8
-    return (*bound_ms(n_bytes, q.size * HASH_OPS), n_bytes)
+    return (*bound_ms(n_bytes, win["q"].size * HASH_OPS), n_bytes)
 
 
 def synth_db_inputs(rng):
@@ -1192,6 +1374,8 @@ def run(dev, tag: str) -> list:
     src = "strainscan_tpu_torch/csrc/"
     fp = count["fp"]
     per_sample = count["launches_per_sample"]
+    prep, prep256 = count["prep"][READ_LEN], count["prep"][MAXLEN]
+    ex256, ex150 = exact["timing"][MAXLEN], exact["timing"][READ_LEN]
     kernels = [{
         "name": "probe_prep_kernel", "route": "cuda",
         "source": src + "probe_count.cu",
@@ -1200,10 +1384,14 @@ def run(dev, tag: str) -> list:
         "launches_per_sample": per_sample["probe_prep_kernel"],
         "parity_launches": parity["probe_prep_kernel"][1],
         "max_abs_err": parity["probe_prep_kernel"][0],
-        "ms": min(count["ms"]["prep"]),
-        "plain_ms": min(count["ms"]["prep_plain"]),
-        "bound_ms": count["prep_bound"][0],
-        "bound_by": count["prep_bound"][1], "library_ms": None,
+        "ms": min(prep["ms"]["kernel"]),
+        "plain_ms": min(prep["ms"]["plain"]),
+        "bound_ms": prep["bound"][0],
+        "bound_by": prep["bound"][1], "library_ms": None,
+        "shape": f"{BATCH} x {READ_LEN}",
+        "at_L256": {"ms": min(prep256["ms"]["kernel"]),
+                    "plain_ms": min(prep256["ms"]["plain"]),
+                    "bound_ms": prep256["bound"][0]},
     }]
     for name in FP_KERNELS:   # the four kernels of the binned count_fp
         st = fp["stages"][name]
@@ -1226,9 +1414,13 @@ def run(dev, tag: str) -> list:
         "launches": exact["launches"],
         "launches_per_sample": exact["per_sample"],
         "max_abs_err": parity["count_exact_kernel"][0],
-        "ms": min(exact["ms"]["count_exact"]),
-        "plain_ms": min(exact["ms"]["count_exact_plain"]),
-        "bound_ms": exact["bound"][0], "bound_by": exact["bound"][1],
+        "ms": min(ex256["ms"]["kernel"]),
+        "plain_ms": min(ex256["ms"]["plain"]),
+        "bound_ms": ex256["bound"][0], "bound_by": ex256["bound"][1],
+        "shape": f"{BATCH} x {MAXLEN}, vbytes",
+        "at_L150": {"ms": min(ex150["ms"]["kernel"]),
+                    "plain_ms": min(ex150["ms"]["plain"]),
+                    "bound_ms": ex150["bound"][0]},
         "library_ms": None,
     }, {
         "name": "row_gather_kernel", "route": "cuda",

@@ -6,37 +6,55 @@
 // plain XLA there, not Pallas: strainscan_tpu/ops/count.py::_count_core
 // (count_batch on raw uint8 codes, count_batch_packed on 2-bit words +
 // validity bits) around strainscan_tpu/index/hashtable.py::lookup_device.
-// A plain PyTorch version materialises a [windows, 24] row gather for every
-// probe; the kernel keeps the rows in registers.  Per window:
-//   * the unpack and window packing of probe_prep_kernel (kmer_window.cuh),
-//     min(fwd, revcomp) with canonical;
-//   * the UNSEEDED bucket hash b = fmix(fmix(hi ^ 0x9E3779B9) ^ lo) & mask;
+// Per window:
+//   * the key of the window packed 5'-first, min(fwd, revcomp) with
+//     canonical (the rolling-key walker of kmer_window.cuh);
+//   * the UNSEEDED home row b = fmix(fmix(hi ^ 0x9E3779B9) ^ lo) & mask;
 //   * for p < max_probe, row (b + p) & mask of the interleaved table
 //     (KmerTable.interleaved: 8 slots x (hi, lo, val) int32 = 96 B); a slot
 //     hits when hi and lo match and val >= 0, a row yields the largest hit
-//     val, and the first probe that hits wins (no later row is read);
-//   * atomicAdd of one into the id-space accumulator counts[id]; a window
-//     that is invalid or misses (or whose id is not in [0, n_keys)) counts
+//     val, and the first row that hits wins (no later row is read).  A
+//     window reads every row up to max_probe before it misses: a loaded
+//     DB's table need not keep a probing invariant, so an empty slot stops
+//     nothing;
+//   * one added to the id-space accumulator counts[id]; a window that is
+//     invalid, padding or a miss (or whose id is not in [0, n_keys)) counts
 //     into the trash entry counts[n_keys], which the JAX scatter slices away.
 //
 // What bounds it on the card
 // --------------------------
-// At 28.6 M keys the table is 2^24 buckets x 96 B = 1.6 GB, far outside the
-// 50 MB L2, so every probe is a device-memory read of one 96 B row (a miss
-// reads max_probe rows), plus one int32 atomic per hit.  Hashing is a few
-// dozen integer operations.  The kernel is bound by memory latency and the
-// number of row reads in flight, not by arithmetic.
+// At 28.6 M keys the table is 2^24 rows x 96 B = 1.6 GB, far outside the
+// 50 MB L2.  A batch of 65,536 reads of 150 bp has about 7.9 M windows, 0.47
+// per row, so each probe is a device-memory read of a row no other window
+// of the batch reads (binning the windows by table slice, as
+// count_fp_bins.cu does for the 256 MiB fingerprint table, would stage
+// slices that are mostly unused).  Each hit then adds into a 114 MB counts
+// array, also larger than the L2.  Hashing is a few dozen integer
+// operations per window.  The kernel is bound by device memory, at the
+// rate it serves random 96 B rows and random 4 B count updates, which is
+// well below its streaming rate (chip_smoke.py times both alone beside the
+// kernel).
 //
 // What the design does about it
 // -----------------------------
-// * The block stages its read rows in shared memory once, as
-//   probe_prep_kernel does.
-// * One thread per window: each thread reads its whole 96 B row as six 16 B
-//   vector loads (rows are 16 B aligned: 96 = 6 x 16), so a warp has 32
-//   independent row reads in flight and many resident warps hide the latency.
-//   Sorting the windows by table slice first, as count_fp_bins.cu does for
-//   the fingerprint table, is left for a later change.
-// * The misses of 32 windows go to the trash entry in one atomic.
+// * A block takes kRows reads and stages their payload in shared memory
+//   with 16 B loads (stage_span).  For each read it finds where the valid
+//   windows end (vlen, or the last set validity bit), so padding windows are
+//   neither walked nor hashed: they only count, arithmetically.
+// * The lanes of a warp walk 32 runs of kRun consecutive windows with the
+//   shared walker, in step, and append every valid window's (hi, lo, row,
+//   probes left) to the warp's queue in shared memory (a ballot gives each
+//   lane its place; no atomics).
+// * Whenever the queue holds 32 x kU windows the warp drains it: each lane
+//   takes kU windows and issues all kU x six 16 B row loads back to back
+//   before it resolves any, so a warp has kU rows per lane in flight.  A
+//   window that does not hit in its row goes back on the queue with the
+//   next row, for a later drain, until its max_probe rows are read.
+// * Hits add to counts with fire-and-forget reductions (red) marked
+//   evict-last in the L2, so the table rows streaming through the L2 push
+//   the count sectors out later; the block adds its trash (windows minus
+//   hits) with one atomic.  Without the hint the row reads and the count
+//   reductions took about as long as each alone added up on an H100.
 //
 // The entry point launches on the caller's stream, does not synchronise, and
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -45,64 +63,266 @@
 
 namespace {
 
-constexpr int kRowVecs = 6;  // 24 int32 = 6 x int4
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 64;       // reads per block (two per lane of warp 0)
+constexpr int kRun = 32;        // windows per work item
+constexpr int kRowVecs = 6;     // 24 int32 = 6 x int4 per table row
 
-__global__ void __launch_bounds__(kThreads)
-count_exact_kernel(const uint8_t* __restrict__ codes,
-                   const uint32_t* __restrict__ words,
-                   const uint16_t* __restrict__ vlen,
-                   const uint8_t* __restrict__ vbytes, int64_t n_rows, int W,
-                   int VB, int L, int M, int k, bool canonical,
-                   const int4* __restrict__ table, uint32_t nb_mask,
+// An L2 policy that keeps the lines it touches longer than others.
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+// *p += 1 without a return value, the line kept under `policy`.
+__device__ __forceinline__ void add_one(int32_t* p, uint64_t policy) {
+  asm volatile("red.global.add.L2::cache_hint.s32 [%0], 1, %1;" ::"l"(p),
+               "l"(policy)
+               : "memory");
+}
+
+// A window of a warp's queue that still has a row to probe (16 B, so a lane
+// reads it in one shared-memory load).
+struct __align__(16) Queue {
+  uint32_t hi, lo, row;
+  int left;   // rows left to probe, this one included
+};
+
+template <int kU>
+struct Probe {
+  Queue* q;                 // this warp's queue, 32 * (kU + 1) entries
+  int n;                    // entries queued (the same on every lane)
+  int hits;                 // this lane's hits
+  const int4* table;
+  uint32_t mask;
+  int32_t* counts;
+  int64_t n_keys;
+  uint64_t policy;          // evict-last, for the count reductions
+
+  // Take the last min(n, 32 kU) entries, kU per lane; load their rows,
+  // resolve them, and queue each window that misses and has rows left.
+  __device__ __forceinline__ void drain(int lane) {
+    const int take = min(n, 32 * kU);
+    const int first = n - take;
+    __syncwarp();   // the entries other lanes wrote are visible
+    Queue e[kU];
+    bool has[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      has[u] = u * 32 + lane < take;
+      if (has[u]) e[u] = q[first + u * 32 + lane];
+    }
+    n = first;
+    __syncwarp();   // every lane has its entries before the requeue writes
+    int4 v[kU][kRowVecs];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (has[u]) {
+        const int4* row = table + static_cast<int64_t>(e[u].row) * kRowVecs;
+#pragma unroll
+        for (int c = 0; c < kRowVecs; ++c) v[u][c] = __ldg(row + c);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      int32_t id = -1;
+      if (has[u]) {
+        int32_t s[4 * kRowVecs];
+#pragma unroll
+        for (int c = 0; c < kRowVecs; ++c) {
+          s[4 * c] = v[u][c].x;
+          s[4 * c + 1] = v[u][c].y;
+          s[4 * c + 2] = v[u][c].z;
+          s[4 * c + 3] = v[u][c].w;
+        }
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int32_t val = s[3 * t + 2];
+          if (static_cast<uint32_t>(s[3 * t]) == e[u].hi &&
+              static_cast<uint32_t>(s[3 * t + 1]) == e[u].lo && val > id)
+            id = val;   // val >= 0 since id starts at -1
+        }
+        if (id >= 0 && id < n_keys) {
+          add_one(counts + id, policy);
+          ++hits;
+        }
+      }
+      const bool again = has[u] && id < 0 && e[u].left > 1;
+      const unsigned m = __ballot_sync(kFullMask, again);
+      if (again) {
+        const int pos = n + __popc(m & ((1u << lane) - 1u));
+        q[pos] = Queue{e[u].hi, e[u].lo, (e[u].row + 1u) & mask,
+                       e[u].left - 1};
+      }
+      n += __popc(m);
+    }
+  }
+};
+
+// Where the valid windows of a staged row end: the valid length (vlen), one
+// past the last set validity bit (vbytes), or L (codes), less k - 1, in
+// [0, M].
+template <int kForm>
+__device__ __forceinline__ int valid_end(const Reads& b, int64_t row,
+                                         const uint8_t* vb) {
+  int end = b.L;
+  if (kForm == kVlen) {
+    end = min(static_cast<int>(b.vlen[row]), b.L);
+  } else if (kForm == kVbytes) {
+    end = 0;
+    for (int i = b.VB - 1; i >= 0; --i) {
+      if (vb[i]) {
+        end = min(8 * i + 32 - __clz(static_cast<unsigned>(vb[i])), b.L);
+        break;
+      }
+    }
+  }
+  return max(0, min(end - b.k + 1, b.M));
+}
+
+template <int kForm, int kU>
+__global__ void __launch_bounds__(kThreads, 2)
+count_exact_kernel(Reads b, const int4* __restrict__ table, uint32_t mask,
                    int max_probe, int32_t* __restrict__ counts,
                    int64_t n_keys) {
-  extern __shared__ uint8_t s_codes[];  // [kRowsPerBlock, L]
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock;
-  const int rows = rows_in_block(n_rows, row0);
-  stage_rows(s_codes, codes, words, vlen, vbytes, row0, rows, W, VB, L);
+  extern __shared__ __align__(16) uint8_t s_pay[];   // staged payload
+  __shared__ Queue s_q[kWarps][32 * (kU + 1)];
+  __shared__ int s_jend[kRows];
+  __shared__ int s_start[kRows + 1];   // first item of each row
+  __shared__ int s_hits;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int n_win = rows * M;
-  for (int base = warp * 32; base < n_win; base += n_warps * 32) {
-    const int w = base + lane;
-    int32_t id = -1;
-    if (w < n_win) {
-      const int r = w / M;
-      uint32_t bad;
-      const uint64_t key =
-          window_key(s_codes + r * L, w - r * M, k, canonical, &bad);
-      if (!bad) {
-        const uint32_t hi = static_cast<uint32_t>(key >> 32);
-        const uint32_t lo = static_cast<uint32_t>(key);
-        const uint32_t b = fmix32(fmix32(hi ^ 0x9E3779B9u) ^ lo) & nb_mask;
-        for (int p = 0; p < max_probe && id < 0; ++p) {
-          const int4* row =
-              table + static_cast<int64_t>((b + p) & nb_mask) * kRowVecs;
-          int32_t e[4 * kRowVecs];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
+  const int64_t left = b.n_rows - row0;
+  const int rows = left < kRows ? static_cast<int>(left) : kRows;
+
+  // stage the block's payload: codes, or words (+ validity bits)
+  const int64_t n_main = kForm == kCodes ? int64_t{rows} * b.L
+                                         : int64_t{rows} * b.W * 4;
+  const uint8_t* s_main = stage_span(
+      s_pay,
+      kForm == kCodes ? b.codes + row0 * b.L
+                      : reinterpret_cast<const uint8_t*>(b.words + row0 * b.W),
+      n_main);
+  const uint8_t* s_vb = nullptr;
+  if (kForm == kVbytes)
+    s_vb = stage_span(s_pay + staged_bytes(n_main), b.vbytes + row0 * b.VB,
+                      int64_t{rows} * b.VB);
+  if (threadIdx.x == 0) s_hits = 0;
+  __syncthreads();
+
+  // each row's valid windows [0, jend) in runs of kRun: the item table
+  if (warp == 0) {
+    int runs[2], jend[2];
 #pragma unroll
-          for (int q = 0; q < kRowVecs; ++q) {
-            const int4 v = __ldg(row + q);
-            e[4 * q] = v.x;
-            e[4 * q + 1] = v.y;
-            e[4 * q + 2] = v.z;
-            e[4 * q + 3] = v.w;
-          }
-#pragma unroll
-          for (int s = 0; s < 8; ++s) {
-            const int32_t val = e[3 * s + 2];
-            if (static_cast<uint32_t>(e[3 * s]) == hi &&
-                static_cast<uint32_t>(e[3 * s + 1]) == lo && val > id)
-              id = val;  // val >= 0 since id starts at -1
-          }
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int r = 2 * lane + h;
+      jend[h] = r < rows ? valid_end<kForm>(b, row0 + r, s_vb + r * b.VB) : 0;
+      runs[h] = (jend[h] + kRun - 1) / kRun;
+      s_jend[r] = jend[h];
     }
-    const bool hit = id >= 0 && id < n_keys;
-    if (hit) atomicAdd(counts + id, 1);
-    const unsigned miss = __ballot_sync(kFullMask, w < n_win && !hit);
-    if (lane == 0 && miss != 0) atomicAdd(counts + n_keys, __popc(miss));
+    const int sum = runs[0] + runs[1];
+    int incl = sum;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, incl, o);
+      if (lane >= o) incl += v;
+    }
+    s_start[2 * lane] = incl - sum;
+    s_start[2 * lane + 1] = incl - sum + runs[0];
+    if (lane == 31) s_start[kRows] = incl;
+  }
+  __syncthreads();
+
+  const int items = s_start[kRows];
+  Probe<kU> pr{s_q[warp], 0,      0,      table,
+               mask,      counts, n_keys, evict_last_policy()};
+  const bool canonical = b.canonical;
+  const int k = b.k;
+  for (int base = warp * 32; base < items; base += kThreads) {
+    const int it = base + lane;
+    int r = 0, j0 = 0, n = 0;
+    if (it < items) {
+      int lo = 0, hi = kRows;   // s_start[lo] <= it < s_start[hi]
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (s_start[mid] <= it) lo = mid; else hi = mid;
+      }
+      r = lo;
+      j0 = (it - s_start[r]) * kRun;
+      n = min(kRun, s_jend[r] - j0);
+    }
+    int steps = n;
+    for (int o = 16; o > 0; o >>= 1)
+      steps = max(steps, __shfl_xor_sync(kFullMask, steps, o));
+    const RowSrc src{
+        s_main + r * b.L,
+        reinterpret_cast<const uint32_t*>(s_main) + r * b.W,
+        s_vb + r * b.VB};
+    walk_windows<kForm>(
+        src, j0, n, steps, k, canonical,
+        [&](int, uint32_t khi, uint32_t klo, bool ok) {
+          const unsigned m = __ballot_sync(kFullMask, ok);
+          if (ok) {
+            const uint32_t home =
+                fmix32(fmix32(khi ^ 0x9E3779B9u) ^ klo) & mask;
+            pr.q[pr.n + __popc(m & ((1u << lane) - 1u))] =
+                Queue{khi, klo, home, max_probe};
+          }
+          pr.n += __popc(m);
+          while (pr.n >= 32 * kU) pr.drain(lane);
+        });
+  }
+  while (pr.n > 0) pr.drain(lane);
+
+  const int hits = warp_sum(pr.hits);
+  if (lane == 0 && hits) atomicAdd(&s_hits, hits);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int trash = rows * b.M - s_hits;
+    if (trash) atomicAdd(counts + n_keys, trash);
+  }
+}
+
+// Dynamic shared memory of a block: the staged payload.
+size_t exact_smem(const Reads& b, int form) {
+  if (form == kCodes) return staged_bytes(int64_t{kRows} * b.L);
+  size_t s = staged_bytes(int64_t{kRows} * b.W * 4);
+  if (form == kVbytes) s += staged_bytes(int64_t{kRows} * b.VB);
+  return s;
+}
+
+template <int kForm, int kU>
+cudaError_t launch(const Reads& b, const int4* table, uint32_t mask,
+                   int max_probe, int32_t* counts, int64_t n_keys,
+                   cudaStream_t stream) {
+  auto kernel = count_exact_kernel<kForm, kU>;
+  const size_t smem = exact_smem(b, kForm);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t grid = (b.n_rows + kRows - 1) / kRows;
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+      b, table, mask, max_probe, counts, n_keys);
+  return cudaGetLastError();
+}
+
+template <int kU>
+cudaError_t launch_form(const Reads& b, int form, const int4* table,
+                        uint32_t mask, int max_probe, int32_t* counts,
+                        int64_t n_keys, cudaStream_t stream) {
+  switch (form) {
+    case kCodes:
+      return launch<kCodes, kU>(b, table, mask, max_probe, counts, n_keys,
+                                stream);
+    case kVlen:
+      return launch<kVlen, kU>(b, table, mask, max_probe, counts, n_keys,
+                               stream);
+    default:
+      return launch<kVbytes, kU>(b, table, mask, max_probe, counts, n_keys,
+                                 stream);
   }
 }
 
@@ -113,25 +333,37 @@ extern "C" {
 // Exactly one payload form: raw codes uint8 [n_rows, L], or words uint32
 // [n_rows, W] with vlen uint16 [n_rows] or vbytes uint8 [n_rows, VB].
 // table int32 [n_buckets, 24] (16 B aligned); adds into counts int32
-// [n_keys + 1].
+// [n_keys + 1].  unroll: rows each lane has in flight (1, 2 or 4).
 int count_exact_launch(int device, const void* codes, const void* words,
                        const void* vlen, const void* vbytes, long long n_rows,
                        int W, int VB, int L, int k, int canonical,
                        const void* table, unsigned n_buckets, int max_probe,
-                       long long n_keys, void* counts, void* stream) {
+                       long long n_keys, void* counts, int unroll,
+                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int M = L - k + 1;
-  if (n_rows > 0 && M > 0) {
-    count_exact_kernel<<<grid_for(n_rows), kThreads, kRowsPerBlock * L,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(codes), static_cast<const uint32_t*>(words),
-        static_cast<const uint16_t*>(vlen),
-        static_cast<const uint8_t*>(vbytes), n_rows, W, VB, L, M, k,
-        canonical != 0, static_cast<const int4*>(table), n_buckets - 1u,
-        max_probe, static_cast<int32_t*>(counts), n_keys);
+  const Reads b = make_reads(codes, words, vlen, vbytes, n_rows, W, VB, L, k,
+                             canonical);
+  if (n_rows <= 0 || b.M <= 0) return static_cast<int>(cudaGetLastError());
+  const int form = form_of(codes, vlen);
+  auto* t = static_cast<const int4*>(table);
+  auto* c = static_cast<int32_t*>(counts);
+  auto s = static_cast<cudaStream_t>(stream);
+  const uint32_t mask = n_buckets - 1u;
+  switch (unroll) {
+    case 1:
+      err = launch_form<1>(b, form, t, mask, max_probe, c, n_keys, s);
+      break;
+    case 2:
+      err = launch_form<2>(b, form, t, mask, max_probe, c, n_keys, s);
+      break;
+    case 4:
+      err = launch_form<4>(b, form, t, mask, max_probe, c, n_keys, s);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -27,9 +27,10 @@
 // -----------------------------
 // A bin is a slice of 2^shift consecutive buckets (64 KiB of table at most).
 // 1. fp_bin_count_kernel: each thread walks a run of kRun consecutive
-//    windows of one read with a rolling 2-bit key (and a rolling reverse
-//    complement), stopping at the read's valid length with vlen; with vbytes
-//    or raw codes it tracks the last invalid position instead.  A shared
+//    windows of one read with the rolling-key walker of kmer_window.cuh
+//    (shared with count_exact.cu and probe_count.cu), stopping at the
+//    read's valid length with vlen; with vbytes or raw codes it tracks the
+//    last invalid position instead.  A shared
 //    histogram counts the block's valid windows per bin; the block then
 //    reserves its range inside each bin with one global atomicAdd per bin
 //    (the returned old value is its offset, kept in block_base), and adds
@@ -65,75 +66,40 @@ constexpr int kBinThreads = 256;
 constexpr int kScanThreads = 1024;
 constexpr int kProbeThreads = 256;
 
-enum Form { kCodes = 0, kVlen = 1, kVbytes = 2 };
-
-// One read batch in one payload form, and the table geometry its windows
-// hash into.
+// One read batch and the table geometry its windows hash into.
 struct Batch {
-  const uint8_t* codes;    // [n_rows, L] raw codes (kCodes)
-  const uint32_t* words;   // [n_rows, W] 2-bit words (kVlen, kVbytes)
-  const uint16_t* vlen;    // [n_rows] valid prefix lengths (kVlen)
-  const uint8_t* vbytes;   // [n_rows, VB] LSB-first validity bits (kVbytes)
-  int64_t n_rows;
-  int W, VB, L, M, k;
-  bool canonical;
+  Reads r;
   uint32_t nb_mask, seed;
   int shift;               // bin = bucket >> shift
 };
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
-  return v;
-}
-
 // Calls f(bucket, fp) for every valid window j in [j0, j0 + kRun) of row
-// `row`; returns how many there were.  Bit-identical to probe_prep on the
-// unpacked codes: the key packs k bases 5'-first (a code c >= 4 puts c & 3
-// in the key and invalidates the window), canonical takes min(fwd, rc).
+// `row` (the shared walker of kmer_window.cuh, reading the payload from
+// device memory); returns how many there were.  With vlen the walk stops
+// at the row's valid length.
 template <int kForm, class F>
 __device__ __forceinline__ int walk_run(const Batch& b, int64_t row, int j0,
                                         F f) {
-  int jend = b.M;
+  const Reads& r = b.r;
+  int jend = r.M;
   if (kForm == kVlen) {
-    const int v = min(static_cast<int>(b.vlen[row]), b.L);
-    jend = v - b.k + 1;
+    const int v = min(static_cast<int>(r.vlen[row]), r.L);
+    jend = v - r.k + 1;
   }
-  jend = min(jend, j0 + kRun);
-  if (j0 >= jend) return 0;
-  const uint64_t kmask = (1ull << (2 * b.k)) - 1;
-  const int rc_shift = 2 * (b.k - 1);
-  const uint8_t* crow = b.codes + row * b.L;
-  const uint32_t* wrow = b.words + row * b.W;
-  const uint8_t* vrow = b.vbytes + row * b.VB;
-  uint64_t fwd = 0, rc = 0;
-  uint32_t word = 0;
-  int last_bad = -1;   // the last invalid position seen
-  int n = 0;
-  const int p_end = jend + b.k - 1;
-  for (int p = j0; p < p_end; ++p) {
-    uint32_t c;
-    if (kForm == kCodes) {
-      c = crow[p];
-      if (c >= 4) last_bad = p;
-      c &= 3u;
-    } else {
-      if ((p & 15) == 0 || p == j0) word = wrow[p >> 4];
-      c = (word >> (2 * (p & 15))) & 3u;
-      if (kForm == kVbytes && !((vrow[p >> 3] >> (p & 7)) & 1u)) last_bad = p;
-    }
-    fwd = ((fwd << 2) | c) & kmask;
-    rc = (rc >> 2) | (static_cast<uint64_t>(3u - c) << rc_shift);
-    const int j = p - b.k + 1;
-    if (j >= j0 && last_bad < j) {
-      const uint64_t key = (b.canonical && rc < fwd) ? rc : fwd;
-      const uint32_t hi = static_cast<uint32_t>(key >> 32);
-      const uint32_t lo = static_cast<uint32_t>(key);
-      f(fmix32(fmix32(hi ^ (0x9E3779B9u ^ b.seed)) ^ lo) & b.nb_mask,
-        fmix32(fmix32(lo ^ 0x85EBCA6Bu) ^ hi));
-      ++n;
-    }
-  }
-  return n;
+  const int n = min(jend, j0 + kRun) - j0;
+  if (n <= 0) return 0;
+  const RowSrc src{r.codes + row * r.L, r.words + row * r.W,
+                   r.vbytes + row * r.VB};
+  int valid = 0;
+  walk_windows<kForm>(src, j0, n, n, r.k, r.canonical,
+                      [&](int, uint32_t hi, uint32_t lo, bool ok) {
+                        if (!ok) return;
+                        f(fmix32(fmix32(hi ^ (0x9E3779B9u ^ b.seed)) ^ lo) &
+                              b.nb_mask,
+                          fmix32(fmix32(lo ^ 0x85EBCA6Bu) ^ hi));
+                        ++valid;
+                      });
+  return valid;
 }
 
 // The (row, run) items of block blockIdx.x: rows [row0, row0 + rows).
@@ -141,10 +107,10 @@ template <int kForm, class F>
 __device__ __forceinline__ int walk_block(const Batch& b, int rows_per_block,
                                           int* rows_out, F f) {
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-  const int64_t left = b.n_rows - row0;
+  const int64_t left = b.r.n_rows - row0;
   const int rows = left < rows_per_block ? static_cast<int>(left)
                                          : rows_per_block;
-  const int runs = (b.M + kRun - 1) / kRun;
+  const int runs = (b.r.M + kRun - 1) / kRun;
   int valid = 0;
   for (int it = threadIdx.x; it < rows * runs; it += blockDim.x) {
     const int r = it / runs;
@@ -180,7 +146,7 @@ fp_bin_count_kernel(Batch b, int n_bins, int rows_per_block,
     base[i] = c ? atomicAdd(bin_count + i, c) : 0;
   }
   if (threadIdx.x == 0) {
-    const int non_hit = rows * b.M - s_valid;   // invalid and padding
+    const int non_hit = rows * b.r.M - s_valid;   // invalid and padding
     if (non_hit) atomicAdd(counts + trash, non_hit);
   }
 }
@@ -342,33 +308,12 @@ Batch make_batch(const void* codes, const void* words, const void* vlen,
                  int k, int canonical, unsigned n_buckets, unsigned seed,
                  int shift) {
   Batch b;
-  b.codes = static_cast<const uint8_t*>(codes);
-  b.words = static_cast<const uint32_t*>(words);
-  b.vlen = static_cast<const uint16_t*>(vlen);
-  b.vbytes = static_cast<const uint8_t*>(vbytes);
-  b.n_rows = n_rows;
-  b.W = W;
-  b.VB = VB;
-  b.L = L;
-  b.M = L - k + 1;
-  b.k = k;
-  b.canonical = canonical != 0;
+  b.r = make_reads(codes, words, vlen, vbytes, n_rows, W, VB, L, k,
+                   canonical);
   b.nb_mask = n_buckets - 1u;
   b.seed = seed;
   b.shift = shift;
   return b;
-}
-
-int form_of(const void* codes, const void* vlen) {
-  return codes != nullptr ? kCodes : (vlen != nullptr ? kVlen : kVbytes);
-}
-
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
 }
 
 template <int kForm>

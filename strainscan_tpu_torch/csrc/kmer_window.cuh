@@ -1,8 +1,8 @@
 // Device helpers shared by the kernels of probe_count.cu, count_exact.cu and
-// count_fp_bins.cu: the 32-bit finalizer of the JAX package's hashes, the
-// reverse complement of a packed k-mer, the packing of one read window, and
-// the staging of a block's read rows into shared memory from any payload
-// form.
+// count_fp_bins.cu: the 32-bit finalizer of the JAX package's hashes, one
+// rolling-key walker over a read row's windows in every payload form, and
+// the staging of a span of device memory into shared memory with 16 B
+// loads.
 #pragma once
 
 #include <cstdint>
@@ -11,9 +11,56 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 4;
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+// Payload forms of a read batch: raw codes uint8 [n_rows, L]; 2-bit words
+// uint32 [n_rows, W] (base p in bits 2(p%16).. of word p/16) with vlen
+// uint16 [n_rows] (valid prefix lengths) or vbytes uint8 [n_rows, VB]
+// (LSB-first validity bits).
+enum Form { kCodes = 0, kVlen = 1, kVbytes = 2 };
+
+// One read batch in one payload form (the pointers of the other forms are
+// null) and its window geometry.
+struct Reads {
+  const uint8_t* codes;    // [n_rows, L] (kCodes)
+  const uint32_t* words;   // [n_rows, W] (kVlen, kVbytes)
+  const uint16_t* vlen;    // [n_rows] (kVlen)
+  const uint8_t* vbytes;   // [n_rows, VB] (kVbytes)
+  int64_t n_rows;
+  int W, VB, L, M, k;      // M = L - k + 1 windows per row
+  bool canonical;
+};
+
+inline Reads make_reads(const void* codes, const void* words,
+                        const void* vlen, const void* vbytes,
+                        long long n_rows, int W, int VB, int L, int k,
+                        int canonical) {
+  Reads r;
+  r.codes = static_cast<const uint8_t*>(codes);
+  r.words = static_cast<const uint32_t*>(words);
+  r.vlen = static_cast<const uint16_t*>(vlen);
+  r.vbytes = static_cast<const uint8_t*>(vbytes);
+  r.n_rows = n_rows;
+  r.W = W;
+  r.VB = VB;
+  r.L = L;
+  r.M = L - k + 1;
+  r.k = k;
+  r.canonical = canonical != 0;
+  return r;
+}
+
+inline int form_of(const void* codes, const void* vlen) {
+  return codes != nullptr ? kCodes : (vlen != nullptr ? kVlen : kVbytes);
+}
+
+// One row of a batch, in device or shared memory: codes for kCodes, words
+// (and vbytes for kVbytes) otherwise.
+struct RowSrc {
+  const uint8_t* codes;
+  const uint32_t* words;
+  const uint8_t* vbytes;
+};
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
@@ -24,79 +71,94 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// Reverse complement of a k-mer packed 2 bits/base in the low 2k bits.
-__device__ __forceinline__ uint64_t revcomp64(uint64_t x, int k) {
-  x = ~x;
-  x = ((x >> 2) & 0x3333333333333333ull) | ((x & 0x3333333333333333ull) << 2);
-  x = ((x >> 4) & 0x0F0F0F0F0F0F0F0Full) | ((x & 0x0F0F0F0F0F0F0F0Full) << 4);
-  x = ((x >> 8) & 0x00FF00FF00FF00FFull) | ((x & 0x00FF00FF00FF00FFull) << 8);
-  x = ((x >> 16) & 0x0000FFFF0000FFFFull) |
-      ((x & 0x0000FFFF0000FFFFull) << 16);
-  x = (x >> 32) | (x << 32);
-  return x >> (64 - 2 * k);
-}
-
-// The k-mer of the window that starts at row[j], packed 5'-first, and
-// min(fwd, revcomp) with canonical.  *bad is non-zero when the window holds
-// a code >= 4: a code c contributes c & 3 to the key and c >> 2 to the flag,
-// as kmer/device.py::extract_kmers does.
-__device__ __forceinline__ uint64_t window_key(const uint8_t* row, int j,
-                                               int k, bool canonical,
-                                               uint32_t* bad) {
-  uint64_t key = 0;
-  uint32_t b = 0;
-  for (int i = 0; i < k; ++i) {
-    const uint32_t c = row[j + i];
-    b |= c >> 2;
-    key = (key << 2) | (c & 3u);
-  }
-  if (canonical) {
-    const uint64_t rc = revcomp64(key, k);
-    key = rc < key ? rc : key;
-  }
-  *bad = b;
-  return key;
-}
-
-// Copy rows [row0, row0 + rows) of a read batch into shared memory as uint8
-// codes [rows, L], then __syncthreads().  Exactly one payload form is given:
-// raw codes uint8 [n_rows, L] (copied as they are), or 2-bit words uint32
-// [n_rows, W] (base p in bits 2(p%16).. of word p/16) with vlen uint16
-// [n_rows] (valid prefix lengths) or vbytes uint8 [n_rows, VB] (LSB-first
-// validity bits); an invalid position becomes code 4.
-__device__ __forceinline__ void stage_rows(uint8_t* s_codes,
-                                           const uint8_t* codes,
-                                           const uint32_t* words,
-                                           const uint16_t* vlen,
-                                           const uint8_t* vbytes, int64_t row0,
-                                           int rows, int W, int VB, int L) {
-  for (int i = threadIdx.x; i < rows * L; i += blockDim.x) {
-    const int r = i / L;
-    const int p = i - r * L;
-    const int64_t row = row0 + r;
-    uint8_t c;
-    if (codes != nullptr) {
-      c = codes[row * L + p];
+// The rolling-key walker.  Walks `steps` windows j = j0, j0 + 1, ... of a
+// row and calls f(j, hi, lo, ok) for each, where (hi, lo) is the window's
+// key packed 5'-first (min(fwd, revcomp) in 64-bit order with canonical)
+// and ok says the window is one of the first n and holds no invalid base.
+// Only the n windows' bases are read (none when n <= 0).  An invalid base
+// (code >= 4, or a clear validity bit) puts c & 3 in the key and clears ok
+// for the k windows that hold it, as kmer/device.py::extract_kmers does;
+// with kVlen every position walked is valid (the caller stops n at the
+// valid length).  Keys and ok are bit-identical to the plain twins'.  A
+// caller whose callback is warp-collective passes the same `steps` on every
+// lane, so every lane calls f the same number of times.
+template <int kForm, class F>
+__device__ __forceinline__ void walk_windows(const RowSrc& src, int j0, int n,
+                                             int steps, int k, bool canonical,
+                                             F f) {
+  const uint64_t kmask = (1ull << (2 * k)) - 1;
+  const int rc_shift = 2 * (k - 1);
+  const int p_end = n > 0 ? j0 + n + k - 1 : j0;   // bases of the n windows
+  uint64_t fwd = 0, rc = 0;
+  uint32_t word = 0;
+  int last_bad = -1;   // the last invalid (or unread) position seen
+  const int s_end = steps + k - 1;
+  for (int s = 0; s < s_end; ++s) {
+    const int p = j0 + s;
+    uint32_t c = 0;
+    if (p < p_end) {
+      if (kForm == kCodes) {
+        c = src.codes[p];
+        if (c >= 4) last_bad = p;
+        c &= 3u;
+      } else {
+        if ((p & 15) == 0 || s == 0) word = src.words[p >> 4];
+        c = (word >> (2 * (p & 15))) & 3u;
+        if (kForm == kVbytes && !((src.vbytes[p >> 3] >> (p & 7)) & 1u))
+          last_bad = p;
+      }
     } else {
-      const uint32_t base = (words[row * W + (p >> 4)] >> (2 * (p & 15))) & 3u;
-      const bool ok =
-          vlen != nullptr
-              ? p < static_cast<int>(vlen[row])
-              : ((vbytes[row * VB + (p >> 3)] >> (p & 7)) & 1u) != 0;
-      c = ok ? static_cast<uint8_t>(base) : static_cast<uint8_t>(4);
+      last_bad = p;
     }
-    s_codes[i] = c;
+    fwd = ((fwd << 2) | c) & kmask;
+    rc = (rc >> 2) | (static_cast<uint64_t>(3u - c) << rc_shift);
+    if (s >= k - 1) {
+      const int j = p - k + 1;
+      const uint64_t key = (canonical && rc < fwd) ? rc : fwd;
+      f(j, static_cast<uint32_t>(key >> 32), static_cast<uint32_t>(key),
+        last_bad < j);
+    }
   }
-  __syncthreads();
 }
 
-__host__ __device__ inline int rows_in_block(int64_t n_rows, int64_t row0) {
-  return static_cast<int>(n_rows - row0 < kRowsPerBlock ? n_rows - row0
-                                                        : kRowsPerBlock);
+// Bytes of shared memory that stage_span needs for a span of n bytes.
+__host__ __device__ inline int64_t staged_bytes(int64_t n) {
+  return ((n + 15) / 16 + 1) * 16;
 }
 
-inline int grid_for(int64_t n_rows) {
-  return static_cast<int>((n_rows + kRowsPerBlock - 1) / kRowsPerBlock);
+// Copies the span [src, src + n) of device memory into shared memory at dst
+// (16 B aligned, staged_bytes(n) long) with one 16 B load per aligned
+// 16 B chunk that the span touches, spread over the block's threads, and
+// returns where src's first byte landed (dst + src % 16).  The first and
+// last chunk may hold up to 15 bytes outside the span; they are read, never
+// used, and lie in the same 16 B chunk as a byte of the span (device
+// allocations are 256 B aligned).  The caller runs __syncthreads() before
+// reading the copy.
+__device__ __forceinline__ const uint8_t* stage_span(uint8_t* dst,
+                                                     const uint8_t* src,
+                                                     int64_t n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const int head = static_cast<int>(a & 15);
+  if (n > 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(a - head);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    const int64_t n4 = (head + n + 15) >> 4;
+    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) d4[i] = __ldg(s4 + i);
+  }
+  return dst + head;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace

@@ -13,10 +13,11 @@
   ``fp_bin_probe_kernel`` (each bin's table rows staged in shared memory,
   its windows resolved there, one added to the hit slot or to the trash
   slot).  :func:`fp_bin_parity` holds each against its twin.
-* :func:`count_exact` -> ``count_exact_kernel``: the exact probe mode: the
-  same unpack and window packing, then up to ``max_probe`` reads of the
-  interleaved exact-table row, and one added to the k-mer's id (or to the
-  trash entry) in place.
+* :func:`count_exact` -> ``count_exact_kernel`` (``csrc/count_exact.cu``):
+  the exact probe mode: each read's valid windows walked with the same
+  rolling key, queued per warp, then up to ``max_probe`` reads of the
+  interleaved exact-table row with ``EXACT_UNROLL`` rows in flight per
+  lane, and one added to the k-mer's id (or to the trash entry) in place.
 
 Both count wrappers take a read batch in one of three payload forms: int32
 2-bit words with ``vlen`` (valid prefix lengths) or ``vbytes`` (validity
@@ -49,6 +50,9 @@ LAUNCHES = {"probe_prep_kernel": 0, "fp_bin_count_kernel": 0,
 # rows per chunk of the plain counts: bounds their [rows * M, row] gathers
 # (1.9 GB at 8192 x 226 x 64 int32 plus temporaries)
 PLAIN_CHUNK_ROWS = 8192
+# table rows each lane of count_exact_kernel has in flight (1, 2 or 4);
+# chip_smoke.py times all three
+EXACT_UNROLL = 2
 
 
 def reset_launches() -> None:
@@ -667,12 +671,12 @@ def count_exact(counts: torch.Tensor, words: torch.Tensor,
                                  vlen=vlen, vbytes=vbytes)
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (row vector loads)")
-    lib = _build.lib()
-    _build.check(lib.count_exact_launch(
+    if EXACT_UNROLL not in (1, 2, 4):
+        raise ValueError(f"EXACT_UNROLL={EXACT_UNROLL} is not 1, 2 or 4")
+    _build.check(_build.lib().count_exact_launch(
         *_batch_args(words, vlen, vbytes, length, k, canonical),
         table.data_ptr(), n_buckets, max_probe, counts.shape[0] - 1,
-        counts.data_ptr(),
-        torch.cuda.current_stream(words.device).cuda_stream),
+        counts.data_ptr(), EXACT_UNROLL, _stream(words)),
         "count_exact_kernel launch")
     LAUNCHES["count_exact_kernel"] += 1
     return counts

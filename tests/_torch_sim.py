@@ -130,3 +130,101 @@ def assert_reports_identical(out_torch, out_jax, truth=None):
         rows = got["final_report.txt"].decode().splitlines()[1:]
         assert {row.split("\t")[1] for row in rows} == truth
     return got
+
+
+# ------------------------------------------------ exact-count edge batches
+EXACT_EDGES = ("padded", "mid_read_n", "all_invalid", "vlen_zero",
+               "shorter_than_k", "wrap", "load_0_9", "shard", "few_rows",
+               "unaligned")
+
+
+def decode_kmer(key, k: int = 31) -> np.ndarray:
+    """uint8 codes of a packed k-mer, 5'-first."""
+    return np.array([(int(key) >> (2 * (k - 1 - i))) & 3 for i in range(k)],
+                    dtype=np.uint8)
+
+
+def exact_edge(case: str):
+    """One edge batch of the exact count, ``(table, codes)``: a port
+    KmerTable and uint8 codes ``[B, L]``, reads padded with code 4 to
+    L = 256 (150 for "unaligned", whose payload rows end off 16 B).
+
+    padded: 67 reads of 150 bp (a block of 64 and a partial one), three
+    of them random (misses); mid_read_n: an N in every third read;
+    all_invalid; vlen_zero: every other row empty; shorter_than_k: every
+    other read 20 bp; wrap: a 64-bucket table whose last bucket overflows
+    into bucket 0, read by 31 bp reads; load_0_9: misses read every one of
+    max_probe > 1 rows; shard: the second shard of a ShardedTable, rebuilt
+    at a lowered load factor; few_rows: 5 reads, fewer than one block."""
+    from strainscan_tpu_torch.index.hashtable import BUCKET, mix_np
+    from strainscan_tpu_torch.kmer import pack
+    from strainscan_tpu_torch.parallel import ShardedTable
+
+    k = 31
+    rng = np.random.default_rng(EXACT_EDGES.index(case))
+    length = 150 if case == "unaligned" else 256
+    genome = rng.integers(0, 4, size=3000).astype(np.uint8)
+    km, _ = pack.pack_kmers(genome, k)
+    keys = np.unique(np.concatenate([km, pack.revcomp_packed(km, k)]))
+    n = 5 if case == "few_rows" else 67
+    codes = np.full((n, length), 4, np.uint8)
+    for i in range(n):
+        s = int(rng.integers(0, genome.size - 150))
+        r = genome[s:s + 150]
+        codes[i, :150] = (3 - r)[::-1] if i % 2 else r
+    codes[-3:, :150] = rng.integers(0, 4, size=(3, 150))   # misses
+    table = KmerTable.build(keys, k=k)
+    if case == "mid_read_n":
+        codes[::3, 40] = 4
+    elif case == "all_invalid":
+        codes[:] = 4
+    elif case == "vlen_zero":
+        codes[::2] = 4
+    elif case == "shorter_than_k":
+        codes[::2, 20:] = 4
+    elif case == "load_0_9":
+        table = KmerTable.build(keys, k=k, load_factor=0.9)
+        assert table.max_probe > 1
+    elif case == "wrap":
+        rand = np.unique(rng.integers(0, 1 << 62, size=4000,
+                                      dtype=np.uint64))
+        home = mix_np((rand >> np.uint64(32)).astype(np.uint32),
+                      (rand & np.uint64(0xFFFFFFFF)).astype(np.uint32)) & 63
+        last, others = rand[home == 63][:12], rand[home != 63][:388]
+        table = KmerTable.build(np.concatenate([last, others]), k=k,
+                                load_factor=0.9)
+        assert table.n_buckets == 64
+        assert np.isin(table.val[:BUCKET], np.arange(12)).any()  # wrapped
+        codes = np.full((40, length), 4, np.uint8)
+        for i, key in enumerate(np.concatenate([last, others[:28]])):
+            codes[i, :k] = decode_kmer(key)
+    elif case == "shard":
+        # 257 keys in 2 shards: the second holds 128 and is rebuilt at a
+        # lowered load factor to the first's 128 buckets
+        st = ShardedTable.build(keys[:257], k=k, n_shards=2)
+        chunk = np.sort(keys[:257])[st.shard_cap:]
+        table = KmerTable.build(chunk, k=k, load_factor=chunk.size / (
+            st.n_buckets * BUCKET))
+        assert table.n_buckets == st.n_buckets == 128
+        assert np.array_equal(table.interleaved(), st.table[1])
+        codes = np.full((chunk.size + 3, length), 4, np.uint8)
+        for i, key in enumerate(chunk):
+            codes[i, :k] = decode_kmer(key)
+        codes[-3:, :150] = rng.integers(0, 4, size=(3, 150))
+    return table, codes
+
+
+def exact_forms(codes: np.ndarray) -> dict:
+    """``{form: (reads, {validity kwarg})}`` of a code batch as CPU
+    tensors: vbytes, raw codes, and vlen where every row's validity is a
+    prefix."""
+    from strainscan_tpu_torch.kmer import pack
+    from strainscan_tpu_torch.kmer.device import from_u32
+
+    words, vbytes = pack.bitpack_codes(codes)
+    out = {"vbytes": (from_u32(words), {"vbytes": torch.from_numpy(vbytes)}),
+           "codes": (torch.from_numpy(codes), {})}
+    vlen = pack.valid_prefix_lens(codes)
+    if vlen is not None:
+        out["vlen"] = (from_u32(words), {"vlen": torch.from_numpy(vlen)})
+    return out

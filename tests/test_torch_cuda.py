@@ -28,9 +28,9 @@ from strainscan_tpu_torch.ops import gather, probe
 from strainscan_tpu_torch.parallel import (ShardedCountPipeline, ShardedTable,
                                            make_mesh, sharded_count)
 
-from _torch_sim import (assert_reports_identical, mutate,  # noqa: F401
-                        one_torch_thread, rand_genome, sim_reads, write_fa,
-                        write_fq)
+from _torch_sim import (EXACT_EDGES, assert_reports_identical,  # noqa: F401
+                        exact_edge, exact_forms, mutate, one_torch_thread,
+                        rand_genome, sim_reads, write_fa, write_fq)
 
 pytestmark = pytest.mark.cuda
 
@@ -64,6 +64,71 @@ def test_probe_prep_kernel_equals_plain(dev, k, canonical):
     torch.cuda.synchronize()
     assert probe.LAUNCHES["probe_prep_kernel"] == before + 1
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+PREP_CASES = ["padded", "tail", "few_rows", "unaligned_view", "long_reads"]
+
+
+@pytest.mark.parametrize("k", [31, 15])
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("case", PREP_CASES)
+def test_probe_prep_kernel_edges_equal_plain(dev, case, k, canonical):
+    """Reads of 150 bp padded to L = 256; a B x M that is not a multiple
+    of 4 (the 16 B stores' scalar tail); fewer rows than a block; a view
+    whose first row does not start on 16 B; reads long enough that a block
+    takes fewer rows."""
+    rng = np.random.default_rng(PREP_CASES.index(case) + k)
+    rows, length = {"padded": (1027, 256), "tail": (5, 256),
+                    "few_rows": (3, 150), "unaligned_view": (1028, 150),
+                    "long_reads": (37, 3000)}[case]
+    codes = np.full((rows, length), 4, np.uint8)
+    n = min(length, 150) if case != "long_reads" else length
+    codes[:, :n] = rng.integers(0, 4, size=(rows, n))
+    codes[rng.random(codes.shape) < 0.02] = 4
+    cd = torch.from_numpy(codes).to(dev)
+    if case == "unaligned_view":
+        cd = cd[1:]
+        assert cd.is_contiguous() and cd.data_ptr() % 16
+    kw = dict(k=k, n_buckets=1 << 16, seed=5, canonical=canonical)
+    got = probe.probe_prep(cd, **kw)
+    want = probe.probe_prep_plain(cd, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("case", EXACT_EDGES)
+def test_count_exact_kernel_edges_equal_plain(dev, case, canonical,
+                                              monkeypatch):
+    """The exact count's edge batches (tests/_torch_sim.py::exact_edge), in
+    every payload form and with 1, 2 and 4 table rows in flight per lane,
+    against count_exact_plain; the "unaligned" batch also as views whose
+    payload spans start and end off 16 B."""
+    table, codes = exact_edge(case)
+    tab = kmer_table_to_device(table, dev).table
+    length = codes.shape[1]
+    for name, (reads, valid) in exact_forms(codes).items():
+        reads = reads.to(dev)
+        valid = {f: v.to(dev) for f, v in valid.items()}
+        views = [(reads, valid)]
+        if case == "unaligned":
+            views.append((reads[3:], {f: v[3:] for f, v in valid.items()}))
+            assert reads[3:].data_ptr() % 16
+        for rd, vd in views:
+            kw = dict(length=length, k=31, max_probe=table.max_probe,
+                      canonical=canonical, **vd)
+            want = torch.zeros(table.n_keys + 1, dtype=torch.int32,
+                               device=dev)
+            probe.count_exact_plain(want, rd, tab, **kw)
+            for unroll in (1, 2, 4):
+                monkeypatch.setattr(probe, "EXACT_UNROLL", unroll)
+                got = torch.zeros_like(want)
+                before = probe.LAUNCHES["count_exact_kernel"]
+                probe.count_exact(got, rd, tab, **kw)
+                torch.cuda.synchronize()
+                assert probe.LAUNCHES["count_exact_kernel"] == before + 1
+                assert torch.equal(got, want), (name, unroll, rd.shape)
+            assert int(want.sum()) == rd.shape[0] * (length - 30)
 
 
 def _genome_keys(rng, glen=20_000):

@@ -26,7 +26,7 @@ from strainscan_tpu_torch.ops import probe
 from strainscan_tpu_torch.ops.count import CountPipeline
 
 from _torch_sim import one_torch_thread  # noqa: F401 (autouse fixture)
-from _torch_sim import port_kmer_table
+from _torch_sim import EXACT_EDGES, exact_edge, exact_forms, port_kmer_table
 
 CPU = torch.device("cpu")
 K = 31
@@ -76,6 +76,49 @@ def test_lookup_exact_equals_jax_and_host(load_factor):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, table.lookup_host(q))
     assert (got >= 0).sum() == keys[::2].size
+
+
+def _jax_kmer_table(t):
+    """The JAX package's KmerTable holding the arrays of ``t``, a port
+    KmerTable."""
+    return KmerTable(key_hi=t.key_hi, key_lo=t.key_lo, val=t.val,
+                     n_buckets=t.n_buckets, max_probe=t.max_probe,
+                     n_keys=t.n_keys, k=t.k)
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+@pytest.mark.parametrize("case", EXACT_EDGES)
+def test_count_exact_edges_equal_jax(case, canonical):
+    """count_exact in every payload form against the JAX package's
+    CountPipeline(probe_mode="exact") (raw codes and vbytes; the vlen form
+    against the codes result) on the edge batches of the exact count, reads
+    padded to L = 256; the trash entry holds every other window."""
+    table, codes = exact_edge(case)
+    dt = kmer_table_to_device(table, CPU)
+    want = {}
+    for packed in (False, True):
+        jp = JaxPipeline(_jax_kmer_table(table), canonical=canonical,
+                         packed_transfer=packed, probe_mode="exact",
+                         pallas=False)
+        jp.add_batch(codes)
+        want[packed] = np.asarray(jp.counts)
+    np.testing.assert_array_equal(want[False], want[True])
+    windows = codes.shape[0] * (codes.shape[1] - K + 1)
+    forms = exact_forms(codes)
+    assert set(forms) == ({"codes", "vbytes"} if case == "mid_read_n"
+                          else {"codes", "vbytes", "vlen"})
+    for name, (reads, valid) in forms.items():
+        c = torch.zeros(table.n_keys + 1, dtype=torch.int32)
+        probe.count_exact(c, reads, dt.table, length=codes.shape[1], k=K,
+                          max_probe=dt.max_probe, canonical=canonical,
+                          **valid)
+        np.testing.assert_array_equal(c.numpy()[:-1], want[True],
+                                      err_msg=name)
+        assert int(c[-1]) == windows - int(want[True].sum()), name
+    if case == "all_invalid":
+        assert want[True].sum() == 0
+    elif case in ("wrap", "load_0_9", "shard"):
+        assert want[True].sum() >= 20
 
 
 def test_kmer_table_to_device_cached_per_device():

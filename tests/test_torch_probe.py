@@ -48,6 +48,28 @@ def test_probe_prep_equals_pallas_interpret(k, canonical, n_buckets, seed):
     np.testing.assert_array_equal(f.numpy().view(np.uint32), np.asarray(jf))
 
 
+@pytest.mark.parametrize("k,canonical", [(31, False), (31, True),
+                                         (16, False), (15, True)])
+@pytest.mark.parametrize("rows,length", [(16, 256), (5, 256), (7, 150)])
+def test_probe_prep_padded_equals_pallas_interpret(rows, length, k,
+                                                   canonical):
+    """Reads of 150 bp (with Ns) padded with code 4 to L = 256, as identify
+    pads them, and batches whose B x M is not a multiple of 4 (5 x 226,
+    7 x 120 at k = 31): every bucket and fingerprint bit-identical."""
+    rng = np.random.default_rng(rows + length + k + canonical)
+    codes = np.full((rows, length), 4, np.uint8)
+    codes[:, :150] = _random_codes(rng, rows, 150)
+    codes[1, 100:] = 4                     # a shorter read
+    jb, jf = jprobe_prep(jnp.asarray(codes), k=k, n_buckets=1 << 12, seed=9,
+                         canonical=canonical, interpret=True)
+    b, f = probe.probe_prep(torch.from_numpy(codes), k=k, n_buckets=1 << 12,
+                            seed=9, canonical=canonical)
+    assert b.shape == (rows, length - k + 1)
+    np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(f.numpy().view(np.uint32), np.asarray(jf))
+    assert (b.numpy()[:, 150:] == -1).all()   # windows over the padding
+
+
 def test_probe_prep_plus_lookup_matches_host_oracle():
     k = 31
     rng = np.random.default_rng(1)
