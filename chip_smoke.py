@@ -132,6 +132,10 @@ STUDY_CONFIG = "tile2048_nbuf16"
 # the binned count_fp: its kernels in launch order
 FP_KERNELS = ("fp_bin_count_kernel", "bin_scan_kernel",
               "fp_bin_scatter_kernel", "fp_bin_probe_kernel")
+# the kernels of count_exact, in launch order
+EXACT_KERNELS = ("count_exact_kernel", "exact_apply_kernel")
+# the ways count_exact adds its hits (ops.probe.EXACT_HITS)
+EXACT_MODES = ("direct", "list", "list_prefetch")
 # integer operations per hashed window: four fmix32 of 8 operations, the
 # seed and constant XORs, and the rolling forward and reverse keys
 HASH_OPS = 44
@@ -337,7 +341,7 @@ def phase_parity(dev, tag: str) -> dict:
     kt = KmerTable.build(keys, k=K, load_factor=0.9)
     ktab = kmer_table_to_device(kt, dev)
     check(kt.max_probe > 1, "the load-0.9 table must overflow buckets")
-    n_exact = 0
+    n_exact = n_apply = 0
     for length in (READ_LEN, MAXLEN):
         batch = np.full((BATCH, length), 4, np.uint8)
         batch[:, :READ_LEN] = reads[:, :READ_LEN]
@@ -346,30 +350,41 @@ def phase_parity(dev, tag: str) -> dict:
         cases = exact_payloads(batch, dirty, dev)
         for (name, words, valid), canonical in (
                 (c, canon) for c in cases for canon in (False, True)):
-            unrolls = ((1, 2, 4) if length == MAXLEN and name == "vbytes"
-                       else (probe.EXACT_UNROLL,))
+            modes = (EXACT_MODES if length == MAXLEN and name == "vbytes"
+                     else (probe.EXACT_HITS,))
             c2 = torch.zeros(kt.n_keys + 1, dtype=torch.int32, device=dev)
             kw = dict(length=length, k=K, max_probe=kt.max_probe,
                       canonical=canonical, **valid)
             probe.count_exact_plain(c2, words, ktab.table, **kw)
-            for unroll in unrolls:
+            for mode in modes:
                 c1 = torch.zeros_like(c2)
-                with exact_unroll(unroll):
+                with exact_hits(mode):
                     probe.count_exact(c1, words, ktab.table, **kw)
                 sync(dev)
                 n_exact += 1
+                n_apply += mode != "direct"
                 check(torch.equal(c1, c2),
                       f"count_exact {name} L={length} canonical={canonical} "
-                      f"unroll={unroll} != plain")
+                      f"hits {mode} != plain")
                 errs["count_exact_kernel"] = max(errs["count_exact_kernel"],
                                                  err(c1, c2))
-            log(f"[parity] count_exact_kernel {name} L={length} "
-                f"canonical={canonical} unroll {unrolls}: bit-exact, "
-                f"{int(c1[:-1].sum())} hits, {int(c1[-1])} trash (table "
-                f"{kt.n_keys} keys, max_probe {kt.max_probe}) [{tag}]")
+            stage = probe.exact_parity(words, ktab.table, kt.n_keys, **kw)
+            sync(dev)
+            n_exact += 1
+            n_apply += 1
+            check(not any(stage.values()), f"exact stages {name}: {stage}")
+            for kname, e in stage.items():
+                errs[kname] = max(errs[kname], e)
+            log(f"[parity] count_exact (count_exact_kernel, "
+                f"exact_apply_kernel) {name} L={length} "
+                f"canonical={canonical}, hits {modes}: each kernel and the "
+                f"whole bit-exact, {int(c1[:-1].sum())} hits, {int(c1[-1])} "
+                f"trash (table {kt.n_keys} keys, max_probe {kt.max_probe}) "
+                f"[{tag}]")
     launches = dict(probe.LAUNCHES)
     want = dict.fromkeys(launches, 0)
     want.update({"probe_prep_kernel": n_probe, "count_exact_kernel": n_exact,
+                 "exact_apply_kernel": n_apply,
                  **dict.fromkeys(FP_KERNELS, 6)})   # count_fp + the parity
     check(launches == want, f"parity launches {launches}")
     log(f"[parity] kernel launches {launches}")
@@ -439,22 +454,22 @@ def exact_payloads(clean: np.ndarray, dirty: np.ndarray, dev) -> list:
             ("codes", torch.from_numpy(dirty).to(dev), {})]
 
 
-class exact_unroll:
-    """``with exact_unroll(u):`` runs count_exact with ``u`` table rows in
-    flight per lane."""
+class exact_hits:
+    """``with exact_hits(mode):`` runs count_exact with its hits added as
+    ``mode`` says (``ops.probe.EXACT_HITS``)."""
 
-    def __init__(self, unroll: int):
-        self.unroll = unroll
+    def __init__(self, mode: str):
+        self.mode = mode
 
     def __enter__(self):
         from strainscan_tpu_torch.ops import probe
 
-        self.old, probe.EXACT_UNROLL = probe.EXACT_UNROLL, self.unroll
+        self.old, probe.EXACT_HITS = probe.EXACT_HITS, self.mode
 
     def __exit__(self, *exc):
         from strainscan_tpu_torch.ops import probe
 
-        probe.EXACT_UNROLL = self.old
+        probe.EXACT_HITS = self.old
 
 
 def fp_table(keys: np.ndarray):
@@ -749,8 +764,9 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
         log(f"[exact] rep {rep}: {dt} s, {N_READS / dt} reads/s end to end "
             f"({'cold: includes the table upload' if rep == 0 else 'warm'}) "
             f"[{tag}]")
-    launches = probe.LAUNCHES["count_exact_kernel"]
-    check(launches > 0 and not any(probe.LAUNCHES[n] for n in FP_KERNELS),
+    launches = {name: probe.LAUNCHES[name] for name in EXACT_KERNELS}
+    check(all(launches.values()) and len(set(launches.values())) == 1
+          and not any(probe.LAUNCHES[n] for n in FP_KERNELS),
           f"exact path launches {dict(probe.LAUNCHES)}")
     log(f"[exact] exact-path kernel launches {dict(probe.LAUNCHES)}")
 
@@ -829,26 +845,52 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
         win = exact_windows(kt, padded)
         bound = exact_bound(kt, win, words.numel() * 4 + valid_t.numel())
         windows = BATCH * (length - K + 1)
-        log(f"[exact] count_exact_kernel at {BATCH} x {length} (vbytes): "
-            f"{ms['kernel']} ms, parent design {ms['parent']} ms, plain "
-            f"{ms['plain']} ms; {windows / (min(ms['kernel']) / 1e3)} "
-            f"windows/s; bound {bound[0]} ms by {bound[1]} ({bound[2]} B) = "
-            f"{bound[0] / min(ms['kernel'])} of the kernel's time [{tag}]")
-        timing[length] = dict(ms=ms, bound=bound)
+        log(f"[exact] count_exact at {BATCH} x {length} (vbytes; both "
+            f"kernels): {ms['kernel']} ms, parent design {ms['parent']} ms, "
+            f"plain {ms['plain']} ms; {windows / (min(ms['kernel']) / 1e3)} "
+            f"windows/s; bound {bound['whole'][0]} ms by {bound['whole'][1]} "
+            f"({bound['whole'][2]} B) = {bound['whole'][0] / min(ms['kernel'])}"
+            f" of the time [{tag}]")
+        # each kernel alone against its plain twin, and the ways of adding
+        # the hits
+        hits, n_hits = probe.exact_probe(scratch, words, table.table, **kw)
+        stage = {
+            "count_exact_kernel": cuda_ms(lambda: probe.exact_probe(
+                scratch, words, table.table, **kw), 20),
+            "count_exact_plain": cuda_ms(lambda: probe.exact_probe_plain(
+                scratch, words, table.table, **kw), 2),
+            "exact_apply_kernel": cuda_ms(lambda: probe.exact_apply(
+                scratch, hits, n_hits), 20),
+            "exact_apply_plain": cuda_ms(lambda: probe.exact_apply_plain(
+                scratch, hits, n_hits), 3)}
+        # the library call that adds the same ids: index_add_ over the
+        # listed ids, gathered out of their regions beforehand
+        listed = hits[torch.arange(hits.shape[1], device=dev)[None, :]
+                      < n_hits[:, None]].to(torch.int64)
+        ones = torch.ones_like(listed, dtype=torch.int32)
+        stage["exact_apply_library"] = cuda_ms(
+            lambda: scratch.index_add_(0, listed, ones), 20)
+        modes = {}
+        for mode in EXACT_MODES:
+            with exact_hits(mode):
+                modes[mode] = cuda_ms(lambda: probe.count_exact(
+                    scratch, words, table.table, **kw), 20)
+        for name in ("count_exact_kernel", "exact_apply_kernel"):
+            log(f"[exact] {name} alone at {BATCH} x {length}: {stage[name]} "
+                f"ms, plain {stage[name.replace('_kernel', '_plain')]} ms, "
+                f"library {stage.get(name.replace('_kernel', '_library'))} "
+                f"ms (index_add_ of the listed ids); "
+                f"bound {bound[name][0]} ms by {bound[name][1]} "
+                f"({bound[name][2]} B) [{tag}]")
+        log(f"[exact] count_exact at {BATCH} x {length} by how it adds its "
+            f"hits: {modes} ms (the wrapper uses {probe.EXACT_HITS}) [{tag}]")
+        timing[length] = dict(ms=ms, bound=bound, stage=stage, modes=modes)
         if length == MAXLEN:
             timing["parts"] = exact_parts(dev, tag, table.table, kt.n_keys,
                                           win, min(ms["kernel"]))
-        if length == MAXLEN:   # rows in flight per lane
-            sweep = {}
-            for unroll in (1, 2, 4):
-                with exact_unroll(unroll):
-                    sweep[unroll] = cuda_ms(lambda: probe.count_exact(
-                        scratch, words, table.table, **kw), 20)
-            log(f"[exact] count_exact_kernel at {BATCH} x {length} by table "
-                f"rows in flight per lane: {sweep} ms (the wrapper uses "
-                f"{probe.EXACT_UNROLL}) [{tag}]")
     return dict(ids=ids, launches=launches, timing=timing,
-                per_sample=launches // COUNT_REPS)
+                per_sample={name: n // COUNT_REPS
+                            for name, n in launches.items()})
 
 
 def exact_parts(dev, tag: str, table, n_keys: int, win: dict,
@@ -905,16 +947,22 @@ def exact_windows(kt, codes: np.ndarray) -> dict:
     return dict(q=q, home=home, ids=ids, need=need)
 
 
-def exact_bound(kt, win: dict, payload_b: int) -> tuple:
-    """(ms, bound_by, bytes) of count_exact on one batch: the payload, each
-    96 B table row its windows must read and each 32 B id-count sector its
-    hits touch, read and written."""
+def exact_bound(kt, win: dict, payload_b: int) -> dict:
+    """(ms, bound_by, bytes) of count_exact on one batch ("whole") and of
+    each of its kernels: the payload, each 96 B table row its windows must
+    read, each 32 B id-count sector its hits touch, read and written, and
+    between the kernels the list of hit ids (4 B each), written and read."""
     home, ids, need = win["home"], win["ids"], win["need"]
     rows = np.unique(np.concatenate([(home[need > p] + p) % kt.n_buckets
                                      for p in range(kt.max_probe)]))
+    n_hits = int((ids >= 0).sum())
     sectors = np.unique(ids[ids >= 0] // 8).size
-    n_bytes = payload_b + rows.size * 96 + sectors * 64 + 8
-    return (*bound_ms(n_bytes, win["q"].size * HASH_OPS), n_bytes)
+    ops = win["q"].size * HASH_OPS
+    parts = {"whole": (payload_b + rows.size * 96 + sectors * 64 + 8, ops),
+             "count_exact_kernel": (payload_b + rows.size * 96 + n_hits * 4
+                                    + 8, ops),
+             "exact_apply_kernel": (n_hits * 4 + sectors * 64, 0)}
+    return {name: (*bound_ms(b, o), b) for name, (b, o) in parts.items()}
 
 
 def synth_db_inputs(rng):
@@ -1096,12 +1144,12 @@ def phase_scale(dev, tag: str, count: dict, exact: dict,
     got = sharded_count(mesh, st, reads)
     sync(dev)
     dt = time.perf_counter() - t0
-    check(probe.LAUNCHES["count_exact_kernel"] == mesh.size,
+    check(all(probe.LAUNCHES[n] == mesh.size for n in EXACT_KERNELS),
           f"sharded_count launches {dict(probe.LAUNCHES)}")
     check(np.array_equal(got[:keys.size].cpu().numpy(), exact["ids"]),
           "sharded_count != the single-device exact counts")
-    log(f"[scale] sharded_count (exact, one count_exact_kernel per "
-        f"position) equals the single-device exact counts over {N_READS} "
+    log(f"[scale] sharded_count (exact, one count_exact_kernel and one "
+        f"exact_apply_kernel per position) equals the single-device exact counts over {N_READS} "
         f"reads; {dt} s including the shard and read uploads [{tag}]")
 
     cfg = dataclasses.replace(IdentifyConfig(), shard_min_kmers=1)
@@ -1407,21 +1455,26 @@ def run(dev, tag: str) -> list:
             "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
             "library_ms": None})
+    for name in EXACT_KERNELS:   # the two kernels of count_exact
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "count_exact.cu",
+            "replaces": "strainscan_tpu/ops/count.py:32",
+            "part_of": "count_exact",
+            "launches": exact["launches"][name],
+            "launches_per_sample": exact["per_sample"][name],
+            "max_abs_err": parity[name][0],
+            "ms": ex256["stage"][name],
+            "plain_ms": ex256["stage"][name.replace("_kernel", "_plain")],
+            "bound_ms": ex256["bound"][name][0],
+            "bound_by": ex256["bound"][name][1],
+            "shape": f"{BATCH} x {MAXLEN}, vbytes",
+            "at_L150": {
+                "ms": ex150["stage"][name],
+                "plain_ms": ex150["stage"][name.replace("_kernel", "_plain")],
+                "bound_ms": ex150["bound"][name][0]},
+            "library_ms": ex256["stage"].get(
+                name.replace("_kernel", "_library"))})
     kernels += [{
-        "name": "count_exact_kernel", "route": "cuda",
-        "source": src + "count_exact.cu",
-        "replaces": "strainscan_tpu/ops/count.py:32",
-        "launches": exact["launches"],
-        "launches_per_sample": exact["per_sample"],
-        "max_abs_err": parity["count_exact_kernel"][0],
-        "ms": min(ex256["ms"]["kernel"]),
-        "plain_ms": min(ex256["ms"]["plain"]),
-        "bound_ms": ex256["bound"][0], "bound_by": ex256["bound"][1],
-        "shape": f"{BATCH} x {MAXLEN}, vbytes",
-        "at_L150": {"ms": min(ex150["ms"]["kernel"]),
-                    "plain_ms": min(ex150["ms"]["plain"]),
-                    "bound_ms": ex150["bound"][0]},
-        "library_ms": None,
     }, {
         "name": "row_gather_kernel", "route": "cuda",
         "source": src + "row_gather.cu",

@@ -68,6 +68,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;       // reads per block (two per lane of warp 0)
 constexpr int kRun = 32;        // windows per work item
 constexpr int kRowVecs = 6;     // 24 int32 = 6 x int4 per table row
+constexpr int kUnroll = 2;      // table rows each lane has in flight
 
 // An L2 policy that keeps the lines it touches longer than others.
 __device__ __forceinline__ uint64_t evict_last_policy() {
@@ -91,7 +92,7 @@ struct __align__(16) Queue {
   int left;   // rows left to probe, this one included
 };
 
-template <int kU>
+template <int kU, bool kList>
 struct Probe {
   Queue* q;                 // this warp's queue, 32 * (kU + 1) entries
   int n;                    // entries queued (the same on every lane)
@@ -101,6 +102,8 @@ struct Probe {
   int32_t* counts;
   int64_t n_keys;
   uint64_t policy;          // evict-last, for the count reductions
+  int32_t* list;            // kList: the block's region of the hit list
+  int* s_n;                 // kList: ids in it so far (shared)
 
   // Take the last min(n, 32 kU) entries, kU per lane; load their rows,
   // resolve them, and queue each window that misses and has rows left.
@@ -145,9 +148,19 @@ struct Probe {
               static_cast<uint32_t>(s[3 * t + 1]) == e[u].lo && val > id)
             id = val;   // val >= 0 since id starts at -1
         }
-        if (id >= 0 && id < n_keys) {
+        if (!kList && id >= 0 && id < n_keys) {
           add_one(counts + id, policy);
           ++hits;
+        }
+      }
+      if (kList) {   // append this round's hits to the block's region
+        const bool hit = id >= 0 && id < n_keys;
+        const unsigned hm = __ballot_sync(kFullMask, hit);
+        if (hm) {
+          int at = 0;
+          if (lane == 0) at = atomicAdd(s_n, __popc(hm));
+          at = __shfl_sync(kFullMask, at, 0);
+          if (hit) list[at + __popc(hm & ((1u << lane) - 1u))] = id;
         }
       }
       const bool again = has[u] && id < 0 && e[u].left > 1;
@@ -183,11 +196,12 @@ __device__ __forceinline__ int valid_end(const Reads& b, int64_t row,
   return max(0, min(end - b.k + 1, b.M));
 }
 
-template <int kForm, int kU>
+template <int kForm, int kU, bool kList>
 __global__ void __launch_bounds__(kThreads, 2)
 count_exact_kernel(Reads b, const int4* __restrict__ table, uint32_t mask,
                    int max_probe, int32_t* __restrict__ counts,
-                   int64_t n_keys) {
+                   int64_t n_keys, int32_t* __restrict__ list,
+                   int32_t* __restrict__ n_list) {
   extern __shared__ __align__(16) uint8_t s_pay[];   // staged payload
   __shared__ Queue s_q[kWarps][32 * (kU + 1)];
   __shared__ int s_jend[kRows];
@@ -238,8 +252,11 @@ count_exact_kernel(Reads b, const int4* __restrict__ table, uint32_t mask,
   __syncthreads();
 
   const int items = s_start[kRows];
-  Probe<kU> pr{s_q[warp], 0,      0,      table,
-               mask,      counts, n_keys, evict_last_policy()};
+  Probe<kU, kList> pr{s_q[warp], 0,      0,      table,
+                      mask,      counts, n_keys, evict_last_policy(),
+                      kList ? list + int64_t{blockIdx.x} * kRows * b.M
+                            : nullptr,
+                      &s_hits};
   const bool canonical = b.canonical;
   const int k = b.k;
   for (int base = warp * 32; base < items; base += kThreads) {
@@ -278,12 +295,69 @@ count_exact_kernel(Reads b, const int4* __restrict__ table, uint32_t mask,
   }
   while (pr.n > 0) pr.drain(lane);
 
-  const int hits = warp_sum(pr.hits);
-  if (lane == 0 && hits) atomicAdd(&s_hits, hits);
+  if (!kList) {
+    const int hits = warp_sum(pr.hits);
+    if (lane == 0 && hits) atomicAdd(&s_hits, hits);
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     const int trash = rows * b.M - s_hits;
     if (trash) atomicAdd(counts + n_keys, trash);
+    if (kList) n_list[blockIdx.x] = s_hits;
+  }
+}
+
+// Prefetches the bytes [p, p + n) into the L2 (p 16 B aligned, n a multiple
+// of 16).
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t n) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(n)
+               : "memory");
+}
+
+constexpr int kApplyThreads = 256;
+constexpr int kPrefetchChunk = 1 << 16;   // bytes per prefetch instruction
+
+// The add stage: counts[id] += 1 for every id of the hit list.  Block
+// (g, s) takes the ids of slice s, [s * slice, (s + 1) * slice), from the
+// regions g, g + G, ... of the list (G = gridDim.x), after prefetching its
+// 1/G share of the slice's counts into the L2.  The grid runs slice after
+// slice (blockIdx.y is the slow index), so each slice's counts sit in the
+// L2 while its adds land, and the list is read once per slice.
+template <bool kPrefetch>
+__global__ void __launch_bounds__(kApplyThreads)
+exact_apply_kernel(const int32_t* __restrict__ list,
+                   const int32_t* __restrict__ n_list, int64_t region,
+                   int n_regions, int32_t* __restrict__ counts,
+                   int64_t n_keys, int64_t slice) {
+  const int64_t lo = int64_t{blockIdx.y} * slice;
+  const int64_t hi = lo + slice < n_keys ? lo + slice : n_keys;
+  if (kPrefetch) {
+    // this block's share of the slice's whole 16 B chunks
+    const uintptr_t a0 =
+        (reinterpret_cast<uintptr_t>(counts + lo) + 15) & ~uintptr_t{15};
+    const uintptr_t a1 =
+        reinterpret_cast<uintptr_t>(counts + hi) & ~uintptr_t{15};
+    if (a1 > a0) {
+      const uintptr_t share =
+          ((a1 - a0 + gridDim.x - 1) / gridDim.x + 15) & ~uintptr_t{15};
+      const uintptr_t s0 = a0 + share * blockIdx.x;
+      const uintptr_t s1 = a1 < s0 + share ? a1 : s0 + share;
+      for (uintptr_t o = s0 + uintptr_t{threadIdx.x} * kPrefetchChunk;
+           o < s1; o += uintptr_t{kApplyThreads} * kPrefetchChunk) {
+        const uintptr_t n = s1 - o < kPrefetchChunk ? s1 - o : kPrefetchChunk;
+        prefetch_l2(reinterpret_cast<const void*>(o),
+                    static_cast<uint32_t>(n));
+      }
+    }
+  }
+  const uint64_t policy = evict_last_policy();
+  for (int r = blockIdx.x; r < n_regions; r += gridDim.x) {
+    const int32_t* ids = list + r * region;
+    const int n = n_list[r];
+    for (int i = threadIdx.x; i < n; i += kApplyThreads) {
+      const int32_t id = __ldcs(ids + i);
+      if (id >= lo && id < hi) add_one(counts + id, policy);
+    }
   }
 }
 
@@ -295,34 +369,35 @@ size_t exact_smem(const Reads& b, int form) {
   return s;
 }
 
-template <int kForm, int kU>
+template <int kForm, bool kList>
 cudaError_t launch(const Reads& b, const int4* table, uint32_t mask,
                    int max_probe, int32_t* counts, int64_t n_keys,
-                   cudaStream_t stream) {
-  auto kernel = count_exact_kernel<kForm, kU>;
+                   int32_t* list, int32_t* n_list, cudaStream_t stream) {
+  auto kernel = count_exact_kernel<kForm, kUnroll, kList>;
   const size_t smem = exact_smem(b, kForm);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int64_t grid = (b.n_rows + kRows - 1) / kRows;
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
-      b, table, mask, max_probe, counts, n_keys);
+      b, table, mask, max_probe, counts, n_keys, list, n_list);
   return cudaGetLastError();
 }
 
-template <int kU>
+template <bool kList>
 cudaError_t launch_form(const Reads& b, int form, const int4* table,
                         uint32_t mask, int max_probe, int32_t* counts,
-                        int64_t n_keys, cudaStream_t stream) {
+                        int64_t n_keys, int32_t* list, int32_t* n_list,
+                        cudaStream_t stream) {
   switch (form) {
     case kCodes:
-      return launch<kCodes, kU>(b, table, mask, max_probe, counts, n_keys,
-                                stream);
+      return launch<kCodes, kList>(b, table, mask, max_probe, counts, n_keys,
+                                   list, n_list, stream);
     case kVlen:
-      return launch<kVlen, kU>(b, table, mask, max_probe, counts, n_keys,
-                               stream);
+      return launch<kVlen, kList>(b, table, mask, max_probe, counts, n_keys,
+                                  list, n_list, stream);
     default:
-      return launch<kVbytes, kU>(b, table, mask, max_probe, counts, n_keys,
-                                 stream);
+      return launch<kVbytes, kList>(b, table, mask, max_probe, counts,
+                                    n_keys, list, n_list, stream);
   }
 }
 
@@ -330,16 +405,22 @@ cudaError_t launch_form(const Reads& b, int form, const int4* table,
 
 extern "C" {
 
+// Reads of one block of count_exact_kernel: the hit list holds
+// ceil(n_rows / rows) regions of rows * M ids.
+int count_exact_rows_per_block() { return kRows; }
+
 // Exactly one payload form: raw codes uint8 [n_rows, L], or words uint32
 // [n_rows, W] with vlen uint16 [n_rows] or vbytes uint8 [n_rows, VB].
-// table int32 [n_buckets, 24] (16 B aligned); adds into counts int32
-// [n_keys + 1].  unroll: rows each lane has in flight (1, 2 or 4).
+// table int32 [n_buckets, 24] (16 B aligned); adds the trash into counts
+// int32 [n_keys + 1], and each hit either into counts (list null) or into
+// the hit list int32 [regions, rows * M], with each region's length in
+// n_list int32 [regions].
 int count_exact_launch(int device, const void* codes, const void* words,
                        const void* vlen, const void* vbytes, long long n_rows,
                        int W, int VB, int L, int k, int canonical,
                        const void* table, unsigned n_buckets, int max_probe,
-                       long long n_keys, void* counts, int unroll,
-                       void* stream) {
+                       long long n_keys, void* counts, void* list,
+                       void* n_list, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Reads b = make_reads(codes, words, vlen, vbytes, n_rows, W, VB, L, k,
@@ -348,22 +429,47 @@ int count_exact_launch(int device, const void* codes, const void* words,
   const int form = form_of(codes, vlen);
   auto* t = static_cast<const int4*>(table);
   auto* c = static_cast<int32_t*>(counts);
+  auto* l = static_cast<int32_t*>(list);
+  auto* nl = static_cast<int32_t*>(n_list);
   auto s = static_cast<cudaStream_t>(stream);
   const uint32_t mask = n_buckets - 1u;
-  switch (unroll) {
-    case 1:
-      err = launch_form<1>(b, form, t, mask, max_probe, c, n_keys, s);
-      break;
-    case 2:
-      err = launch_form<2>(b, form, t, mask, max_probe, c, n_keys, s);
-      break;
-    case 4:
-      err = launch_form<4>(b, form, t, mask, max_probe, c, n_keys, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
+  err = l != nullptr
+            ? launch_form<true>(b, form, t, mask, max_probe, c, n_keys, l, nl,
+                                s)
+            : launch_form<false>(b, form, t, mask, max_probe, c, n_keys, l,
+                                 nl, s);
   return static_cast<int>(err);
+}
+
+// counts[id] += 1 for the first n_list[r] ids of each region r of list
+// int32 [n_regions, region], slice ids at a time (prefetch: each slice's
+// counts prefetched into the L2 first).
+int exact_apply_launch(int device, const void* list, const void* n_list,
+                       long long region, int n_regions, void* counts,
+                       long long n_keys, long long slice, int prefetch,
+                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_regions <= 0 || n_keys <= 0) return static_cast<int>(cudaGetLastError());
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t n_slices = (n_keys + slice - 1) / slice;
+  if (n_slices > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(n_regions < 8 * sms ? n_regions
+                                                           : 8 * sms),
+                  static_cast<unsigned>(n_slices));
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* l = static_cast<const int32_t*>(list);
+  auto* nl = static_cast<const int32_t*>(n_list);
+  auto* c = static_cast<int32_t*>(counts);
+  if (prefetch)
+    exact_apply_kernel<true><<<grid, kApplyThreads, 0, s>>>(
+        l, nl, region, n_regions, c, n_keys, slice);
+  else
+    exact_apply_kernel<false><<<grid, kApplyThreads, 0, s>>>(
+        l, nl, region, n_regions, c, n_keys, slice);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -45,14 +45,17 @@ from strainscan_tpu_torch.ops import _build
 LAUNCHES = {"probe_prep_kernel": 0, "fp_bin_count_kernel": 0,
             "bin_scan_kernel": 0, "fp_bin_scatter_kernel": 0,
             "fp_bin_probe_kernel": 0, "count_exact_kernel": 0,
-            "row_gather_kernel": 0}
+            "exact_apply_kernel": 0, "row_gather_kernel": 0}
 
 # rows per chunk of the plain counts: bounds their [rows * M, row] gathers
 # (1.9 GB at 8192 x 226 x 64 int32 plus temporaries)
 PLAIN_CHUNK_ROWS = 8192
-# table rows each lane of count_exact_kernel has in flight (1, 2 or 4);
-# chip_smoke.py times all three
-EXACT_UNROLL = 2
+# how count_exact adds its hits: "list" (count_exact_kernel lists them,
+# exact_apply_kernel adds them a slice of the id space at a time),
+# "list_prefetch" (the same, each slice prefetched into the L2 first) or
+# "direct" (count_exact_kernel adds each into counts); chip_smoke.py times
+# all three
+EXACT_HITS = "list_prefetch"
 
 
 def reset_launches() -> None:
@@ -639,6 +642,139 @@ def count_exact_plain(counts: torch.Tensor, words: torch.Tensor,
     return counts
 
 
+# reads per block of count_exact_kernel (kRows of csrc/count_exact.cu): the
+# hit list holds one region of EXACT_ROWS * M ids per block
+EXACT_ROWS = 64
+# ids per slice of the add stage (16 MiB of counts, which the 50 MB L2 of
+# an H100 holds beside the list it streams); a multiple of 32
+EXACT_SLICE = 1 << 22
+
+
+def _exact_checks(counts, words, table, length, k, vlen, vbytes):
+    """Check count_exact's arguments; return the tensors to route on."""
+    valid = _payload(words, vlen, vbytes, length)
+    _check(table, "table", torch.int32, 2)
+    _check(counts, "counts", torch.int32, 1)
+    n_buckets = table.shape[0]
+    if table.shape[1] != 24:
+        raise ValueError(f"table rows hold {table.shape[1]} int32, want 24")
+    if n_buckets & (n_buckets - 1) or n_buckets == 0:
+        raise ValueError(f"n_buckets={n_buckets} is not a power of two")
+    _check_k(k, length)
+    return (counts, words, table) + (() if valid is None else (valid,))
+
+
+def exact_probe_plain(counts: torch.Tensor, words: torch.Tensor,
+                      table: torch.Tensor, *, length: int, k: int,
+                      max_probe: int, canonical: bool = False,
+                      vlen: Optional[torch.Tensor] = None,
+                      vbytes: Optional[torch.Tensor] = None) -> tuple:
+    """Plain twin of :func:`exact_probe`: the hits of each block of
+    EXACT_ROWS reads in window order."""
+    n_rows = words.shape[0]
+    m = length - k + 1
+    n_keys = counts.shape[0] - 1
+    n_reg = -(-n_rows // EXACT_ROWS)
+    hits = torch.full((n_reg, EXACT_ROWS * m), -1, dtype=torch.int32,
+                      device=words.device)
+    n_hits = torch.zeros(n_reg, dtype=torch.int32, device=words.device)
+    row0 = 0
+    for codes in _chunks(words, vlen, vbytes, length):
+        rows = codes.shape[0]
+        hi, lo, ok = kdev.extract_kmers(codes, k)
+        if canonical:
+            hi, lo = kdev.canonical(hi, lo, k)
+        ids = torch.where(ok, lookup_exact(table, table.shape[0], max_probe,
+                                           hi, lo), -1)
+        ids = torch.where(ids < n_keys, ids, -1).to(torch.int32)
+        pad = -rows % EXACT_ROWS
+        ids = torch.cat([ids, ids.new_full((pad, m), -1)]).view(
+            -1, EXACT_ROWS * m)
+        miss = (ids < 0).to(torch.int8)
+        order = torch.sort(miss, dim=1, stable=True).indices
+        r0 = row0 // EXACT_ROWS
+        hits[r0:r0 + ids.shape[0]] = ids.gather(1, order)
+        n_hits[r0:r0 + ids.shape[0]] = (1 - miss).sum(1, dtype=torch.int32)
+        counts[n_keys] += rows * m - int((1 - miss).sum())
+        row0 += rows
+    return hits, n_hits
+
+
+def exact_probe(counts: torch.Tensor, words: torch.Tensor,
+                table: torch.Tensor, *, length: int, k: int, max_probe: int,
+                canonical: bool = False, vlen: Optional[torch.Tensor] = None,
+                vbytes: Optional[torch.Tensor] = None) -> tuple:
+    """The probe stage of :func:`count_exact`: every window that misses (or
+    is invalid, or padding) adds one to the trash entry ``counts[n_keys]``,
+    and the ids of the hits are listed per block of EXACT_ROWS reads.
+
+    Returns ``(hits int32 [regions, EXACT_ROWS * M], n_hits int32
+    [regions])``: region r lists the hit ids of reads ``[r * EXACT_ROWS,
+    (r + 1) * EXACT_ROWS)`` in its first ``n_hits[r]`` entries, in an order
+    that may vary between runs (the rest is unset).
+    """
+    route = _exact_checks(counts, words, table, length, k, vlen, vbytes)
+    kw = dict(length=length, k=k, max_probe=max_probe, canonical=canonical,
+              vlen=vlen, vbytes=vbytes)
+    if not _route(*route):
+        return exact_probe_plain(counts, words, table, **kw)
+    m = length - k + 1
+    n_reg = -(-words.shape[0] // EXACT_ROWS)
+    hits = torch.empty((n_reg, EXACT_ROWS * m), dtype=torch.int32,
+                       device=words.device)
+    n_hits = torch.empty(n_reg, dtype=torch.int32, device=words.device)
+    _launch_exact(counts, words, table, hits, n_hits, **kw)
+    return hits, n_hits
+
+
+def _launch_exact(counts, words, table, hits, n_hits, *, length, k,
+                  max_probe, canonical, vlen, vbytes) -> None:
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned (row vector loads)")
+    lib = _build.lib()
+    if lib.count_exact_rows_per_block() != EXACT_ROWS:
+        raise RuntimeError("EXACT_ROWS differs from csrc/count_exact.cu")
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    _build.check(lib.count_exact_launch(
+        *_batch_args(words, vlen, vbytes, length, k, canonical),
+        table.data_ptr(), table.shape[0], max_probe, counts.shape[0] - 1,
+        counts.data_ptr(), ptr(hits), ptr(n_hits), _stream(words)),
+        "count_exact_kernel launch")
+    LAUNCHES["count_exact_kernel"] += 1
+
+
+def exact_apply_plain(counts: torch.Tensor, hits: torch.Tensor,
+                      n_hits: torch.Tensor) -> torch.Tensor:
+    """Plain twin of :func:`exact_apply`."""
+    listed = (torch.arange(hits.shape[1], device=hits.device)[None, :]
+              < n_hits[:, None])
+    ids = hits[listed].to(torch.int64)
+    counts.index_add_(0, ids, torch.ones_like(ids, dtype=counts.dtype))
+    return counts
+
+
+def exact_apply(counts: torch.Tensor, hits: torch.Tensor,
+                n_hits: torch.Tensor) -> torch.Tensor:
+    """The add stage of :func:`count_exact`: one added to ``counts[id]``
+    for each id that :func:`exact_probe` listed, in place.  Returns
+    ``counts``."""
+    _check(counts, "counts", torch.int32, 1)
+    _check(hits, "hits", torch.int32, 2)
+    _check(n_hits, "n_hits", torch.int32, 1)
+    if n_hits.shape[0] != hits.shape[0]:
+        raise ValueError("n_hits rows differ from hits rows")
+    if not _route(counts, hits, n_hits):
+        return exact_apply_plain(counts, hits, n_hits)
+    n_keys = counts.shape[0] - 1
+    _build.check(_build.lib().exact_apply_launch(
+        counts.device.index, hits.data_ptr(), n_hits.data_ptr(),
+        hits.shape[1], hits.shape[0], counts.data_ptr(), n_keys, EXACT_SLICE,
+        int(EXACT_HITS == "list_prefetch"), _stream(counts)),
+        "exact_apply_kernel launch")
+    LAUNCHES["exact_apply_kernel"] += 1
+    return counts
+
+
 def count_exact(counts: torch.Tensor, words: torch.Tensor,
                 table: torch.Tensor, *, length: int, k: int, max_probe: int,
                 canonical: bool = False, vlen: Optional[torch.Tensor] = None,
@@ -655,28 +791,51 @@ def count_exact(counts: torch.Tensor, words: torch.Tensor,
 
     Returns ``counts``.
     """
-    valid = _payload(words, vlen, vbytes, length)
-    _check(table, "table", torch.int32, 2)
-    _check(counts, "counts", torch.int32, 1)
-    n_buckets = table.shape[0]
-    if table.shape[1] != 24:
-        raise ValueError(f"table rows hold {table.shape[1]} int32, want 24")
-    if n_buckets & (n_buckets - 1) or n_buckets == 0:
-        raise ValueError(f"n_buckets={n_buckets} is not a power of two")
-    _check_k(k, length)
-    extra = () if valid is None else (valid,)
-    if not _route(counts, words, table, *extra):
-        return count_exact_plain(counts, words, table, length=length, k=k,
-                                 max_probe=max_probe, canonical=canonical,
-                                 vlen=vlen, vbytes=vbytes)
-    if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned (row vector loads)")
-    if EXACT_UNROLL not in (1, 2, 4):
-        raise ValueError(f"EXACT_UNROLL={EXACT_UNROLL} is not 1, 2 or 4")
-    _build.check(_build.lib().count_exact_launch(
-        *_batch_args(words, vlen, vbytes, length, k, canonical),
-        table.data_ptr(), n_buckets, max_probe, counts.shape[0] - 1,
-        counts.data_ptr(), EXACT_UNROLL, _stream(words)),
-        "count_exact_kernel launch")
-    LAUNCHES["count_exact_kernel"] += 1
-    return counts
+    route = _exact_checks(counts, words, table, length, k, vlen, vbytes)
+    kw = dict(length=length, k=k, max_probe=max_probe, canonical=canonical,
+              vlen=vlen, vbytes=vbytes)
+    if not _route(*route):
+        return count_exact_plain(counts, words, table, **kw)
+    if EXACT_HITS == "direct":
+        _launch_exact(counts, words, table, None, None, **kw)
+        return counts
+    return exact_apply(counts, *exact_probe(counts, words, table, **kw))
+
+
+def exact_parity(words: torch.Tensor, table: torch.Tensor, n_keys: int, *,
+                 length: int, k: int, max_probe: int, canonical: bool = False,
+                 vlen: Optional[torch.Tensor] = None,
+                 vbytes: Optional[torch.Tensor] = None) -> dict:
+    """Each kernel of :func:`count_exact` against its plain twin on the same
+    inputs: ``{kernel name: max |kernel - plain|}`` over what it writes.
+    The probe's trash entry and region lengths must be equal, and its
+    listed ids as a multiset within each region (the order inside a region
+    is the order of its warps); the add stage runs both on the plain probe's
+    list."""
+    kw = dict(length=length, k=k, max_probe=max_probe, canonical=canonical,
+              vlen=vlen, vbytes=vbytes)
+
+    def err(a, b):
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        return int(d.max()) if d.numel() else 0
+
+    def listed(hits, n_hits):
+        """(region << 32 | id) of every listed id, sorted."""
+        mask = (torch.arange(hits.shape[1], device=hits.device)[None, :]
+                < n_hits[:, None])
+        region = torch.arange(hits.shape[0], device=hits.device)[:, None]
+        keys = (region << 32) | hits.to(torch.int64)
+        return torch.sort(keys[mask]).values
+
+    c1 = torch.zeros(n_keys + 1, dtype=torch.int32, device=words.device)
+    c2 = c1.clone()
+    hits, n_hits = exact_probe(c1, words, table, **kw)
+    phits, pn = exact_probe_plain(c2, words, table, **kw)
+    out = {"count_exact_kernel": max(err(c1, c2), err(n_hits, pn)) if
+           not torch.equal(n_hits, pn) else max(
+               err(c1, c2), err(listed(hits, n_hits), listed(phits, pn)))}
+    a1, a2 = c2.clone(), c2.clone()
+    exact_apply(a1, phits, pn)
+    exact_apply_plain(a2, phits, pn)
+    out["exact_apply_kernel"] = err(a1, a2)
+    return out

@@ -34,6 +34,8 @@ from _torch_sim import (EXACT_EDGES, assert_reports_identical,  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
+EXACT_KERNELS = ("count_exact_kernel", "exact_apply_kernel")
+
 
 @pytest.fixture
 def dev():
@@ -101,9 +103,10 @@ def test_probe_prep_kernel_edges_equal_plain(dev, case, k, canonical):
 def test_count_exact_kernel_edges_equal_plain(dev, case, canonical,
                                               monkeypatch):
     """The exact count's edge batches (tests/_torch_sim.py::exact_edge), in
-    every payload form and with 1, 2 and 4 table rows in flight per lane,
-    against count_exact_plain; the "unaligned" batch also as views whose
-    payload spans start and end off 16 B."""
+    every payload form and every way of adding the hits, against
+    count_exact_plain, and each of its two kernels against its twin; the
+    "unaligned" batch also as views whose payload spans start and end off
+    16 B."""
     table, codes = exact_edge(case)
     tab = kmer_table_to_device(table, dev).table
     length = codes.shape[1]
@@ -120,15 +123,20 @@ def test_count_exact_kernel_edges_equal_plain(dev, case, canonical,
             want = torch.zeros(table.n_keys + 1, dtype=torch.int32,
                                device=dev)
             probe.count_exact_plain(want, rd, tab, **kw)
-            for unroll in (1, 2, 4):
-                monkeypatch.setattr(probe, "EXACT_UNROLL", unroll)
+            for mode in ("direct", "list", "list_prefetch"):
+                monkeypatch.setattr(probe, "EXACT_HITS", mode)
                 got = torch.zeros_like(want)
-                before = probe.LAUNCHES["count_exact_kernel"]
+                before = {n: probe.LAUNCHES[n] for n in EXACT_KERNELS}
                 probe.count_exact(got, rd, tab, **kw)
                 torch.cuda.synchronize()
-                assert probe.LAUNCHES["count_exact_kernel"] == before + 1
-                assert torch.equal(got, want), (name, unroll, rd.shape)
+                assert {n: probe.LAUNCHES[n] - before[n]
+                        for n in EXACT_KERNELS} == {
+                    "count_exact_kernel": 1,
+                    "exact_apply_kernel": int(mode != "direct")}
+                assert torch.equal(got, want), (name, mode, rd.shape)
             assert int(want.sum()) == rd.shape[0] * (length - 30)
+            stage = probe.exact_parity(rd, tab, table.n_keys, **kw)
+            assert not any(stage.values()), (name, stage)
 
 
 def _genome_keys(rng, glen=20_000):
@@ -269,12 +277,12 @@ def test_count_exact_kernel_equals_plain(dev, form, canonical):
     valid = {f: v.to(dev) for f, v in valid.items()}
     c1 = torch.zeros(kt.n_keys + 1, dtype=torch.int32, device=dev)
     c2 = c1.clone()
-    before = probe.LAUNCHES["count_exact_kernel"]
+    before = {n: probe.LAUNCHES[n] for n in EXACT_KERNELS}
     kw = dict(length=160, k=31, max_probe=kt.max_probe, canonical=canonical)
     probe.count_exact(c1, reads, table.table, **kw, **valid)
     probe.count_exact_plain(c2, reads, table.table, **kw, **valid)
     torch.cuda.synchronize()
-    assert probe.LAUNCHES["count_exact_kernel"] == before + 1
+    assert all(probe.LAUNCHES[n] == before[n] + 1 for n in EXACT_KERNELS)
     assert torch.equal(c1, c2)
     assert int(c1[:-1].sum()) > 100_000
 

@@ -131,7 +131,7 @@ def test_cpu_tensor_routes_to_plain_twin():
     assert probe.LAUNCHES == dict.fromkeys((
         "probe_prep_kernel", "fp_bin_count_kernel", "bin_scan_kernel",
         "fp_bin_scatter_kernel", "fp_bin_probe_kernel", "count_exact_kernel",
-        "row_gather_kernel"), 0)
+        "exact_apply_kernel", "row_gather_kernel"), 0)
     with pytest.raises(ValueError):
         probe.probe_prep(codes.to(torch.int32), k=21, n_buckets=1 << 8,
                          seed=1)
