@@ -16,9 +16,10 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    each of its four binned kernels (fp_bin_count_kernel, bin_scan_kernel,
    fp_bin_scatter_kernel, fp_bin_probe_kernel; ops.probe.fp_bin_parity),
    on a random table with vlen, vbytes and raw codes payloads;
-   count_exact_kernel on a random KmerTable at load 0.9 (so windows probe
-   past their home row) with vbytes and codes payloads, canonical on and
-   off.
+   count_exact, and each of its two kernels (count_exact_kernel,
+   exact_apply_kernel; ops.probe.exact_parity), on a random KmerTable at
+   load 0.9 (so windows probe past their home row) with vbytes, vlen and
+   codes payloads at L = 150 and padded to L = 256, canonical on and off.
 3. E. coli-scale count (the geometry of bench.py): a seeded 14.3 Mb random
    genome, both strands (28.6 M keys, fingerprint table 1,048,576 x 64),
    1.2 M reads of 150 bp (half reverse-complemented, 5 % random misses,
@@ -31,15 +32,18 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    KmerTable.lookup_host + bincount on one batch; the ids where it differs
    from the fp counts (fingerprint strays) are counted.  Times (CUDA
    events, in turns): end-to-end reads/s of both modes; probe_prep_kernel
-   and count_exact_kernel against their plain twins at B = 65,536 x
-   L = 150; count_fp at identify's shape (65,536 reads of 150 bp padded to
+   against its plain twin at B = 65,536 x L = 150 and padded to L = 256;
+   count_exact where the exact stream runs it (65,536 reads padded to
+   L = 256, vbytes) and at L = 150 against its plain twin, each of its
+   kernels alone, and its add stage at 8, 16 and 32 MiB of counts per
+   slice; count_fp at identify's shape (65,536 reads of 150 bp padded to
    L = 256, vlen) and at L = 150 against its plain twin, each binned kernel
    held against its twin there and timed alone, and count_fp at 1, 4 and
-   16 blocks per SM of its count and scatter kernels.  Every kernel's bound (bytes each read or
-   written once over 3.35 TB/s, or integer operations over 67 T/s) comes
-   from this run's data: the distinct table rows and count sectors the
-   windows touch.  The launches of each kernel per 1.2 M-read sample are
-   counted.
+   16 blocks per SM of its count and scatter kernels.  Every kernel's
+   bound (bytes each read or written once over 3.35 TB/s, or integer
+   operations over 67 T/s) comes from this run's data: the distinct table
+   rows and count sectors the windows touch.  The launches of each kernel
+   per 1.2 M-read sample are counted.
 4. End-to-end identify through the CLI entry point on a synthetic DB:
    single-strain, cross-cluster and intra-cluster (Enet) samples with
    ``identify`` and then ``batch-identify`` on the GPU, once more in a
@@ -73,7 +77,7 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
 
 Each path's launch counters are set to 0 just before it and read just
 after: the main path (phase 4's GPU identify) for count_fp's kernels, the
-exact-mode count of phase 3 for count_exact_kernel, the study's gather
+exact-mode count of phase 3 for count_exact's two kernels, the study's gather
 section of phase 6 for row_gather_kernel.  probe_prep_kernel is
 the standalone parity seam of the Pallas probe_prep, on no path (its hash
 runs fused inside the count kernels), so its main-path count is 0 and the
@@ -134,8 +138,8 @@ FP_KERNELS = ("fp_bin_count_kernel", "bin_scan_kernel",
               "fp_bin_scatter_kernel", "fp_bin_probe_kernel")
 # the kernels of count_exact, in launch order
 EXACT_KERNELS = ("count_exact_kernel", "exact_apply_kernel")
-# the ways count_exact adds its hits (ops.probe.EXACT_HITS)
-EXACT_MODES = ("direct", "list", "list_prefetch")
+# ids per slice of exact_apply_kernel that phase 3 times (8, 16, 32 MiB)
+EXACT_SLICES = (1 << 21, 1 << 22, 1 << 23)
 # integer operations per hashed window: four fmix32 of 8 operations, the
 # seed and constant XORs, and the rolling forward and reverse keys
 HASH_OPS = 44
@@ -341,7 +345,7 @@ def phase_parity(dev, tag: str) -> dict:
     kt = KmerTable.build(keys, k=K, load_factor=0.9)
     ktab = kmer_table_to_device(kt, dev)
     check(kt.max_probe > 1, "the load-0.9 table must overflow buckets")
-    n_exact = n_apply = 0
+    n_exact = 0
     for length in (READ_LEN, MAXLEN):
         batch = np.full((BATCH, length), 4, np.uint8)
         batch[:, :READ_LEN] = reads[:, :READ_LEN]
@@ -350,41 +354,29 @@ def phase_parity(dev, tag: str) -> dict:
         cases = exact_payloads(batch, dirty, dev)
         for (name, words, valid), canonical in (
                 (c, canon) for c in cases for canon in (False, True)):
-            modes = (EXACT_MODES if length == MAXLEN and name == "vbytes"
-                     else (probe.EXACT_HITS,))
-            c2 = torch.zeros(kt.n_keys + 1, dtype=torch.int32, device=dev)
+            c1 = torch.zeros(kt.n_keys + 1, dtype=torch.int32, device=dev)
+            c2 = torch.zeros_like(c1)
             kw = dict(length=length, k=K, max_probe=kt.max_probe,
                       canonical=canonical, **valid)
+            probe.count_exact(c1, words, ktab.table, **kw)
             probe.count_exact_plain(c2, words, ktab.table, **kw)
-            for mode in modes:
-                c1 = torch.zeros_like(c2)
-                with exact_hits(mode):
-                    probe.count_exact(c1, words, ktab.table, **kw)
-                sync(dev)
-                n_exact += 1
-                n_apply += mode != "direct"
-                check(torch.equal(c1, c2),
-                      f"count_exact {name} L={length} canonical={canonical} "
-                      f"hits {mode} != plain")
-                errs["count_exact_kernel"] = max(errs["count_exact_kernel"],
-                                                 err(c1, c2))
             stage = probe.exact_parity(words, ktab.table, kt.n_keys, **kw)
             sync(dev)
-            n_exact += 1
-            n_apply += 1
-            check(not any(stage.values()), f"exact stages {name}: {stage}")
+            n_exact += 2
+            check(torch.equal(c1, c2), f"count_exact {name} L={length} "
+                  f"canonical={canonical} != plain")
+            check(not any(stage.values()), f"exact kernels {name}: {stage}")
             for kname, e in stage.items():
-                errs[kname] = max(errs[kname], e)
-            log(f"[parity] count_exact (count_exact_kernel, "
-                f"exact_apply_kernel) {name} L={length} "
-                f"canonical={canonical}, hits {modes}: each kernel and the "
+                errs[kname] = max(errs[kname], e, err(c1, c2))
+            log(f"[parity] count_exact ({', '.join(EXACT_KERNELS)}) {name} "
+                f"L={length} canonical={canonical}: each kernel and the "
                 f"whole bit-exact, {int(c1[:-1].sum())} hits, {int(c1[-1])} "
                 f"trash (table {kt.n_keys} keys, max_probe {kt.max_probe}) "
                 f"[{tag}]")
     launches = dict(probe.LAUNCHES)
     want = dict.fromkeys(launches, 0)
-    want.update({"probe_prep_kernel": n_probe, "count_exact_kernel": n_exact,
-                 "exact_apply_kernel": n_apply,
+    want.update({"probe_prep_kernel": n_probe,
+                 **dict.fromkeys(EXACT_KERNELS, n_exact),
                  **dict.fromkeys(FP_KERNELS, 6)})   # count_fp + the parity
     check(launches == want, f"parity launches {launches}")
     log(f"[parity] kernel launches {launches}")
@@ -452,24 +444,6 @@ def exact_payloads(clean: np.ndarray, dirty: np.ndarray, dev) -> list:
             ("vlen", from_u32(cwords).to(dev),
              {"vlen": torch.from_numpy(vlen).to(dev)}),
             ("codes", torch.from_numpy(dirty).to(dev), {})]
-
-
-class exact_hits:
-    """``with exact_hits(mode):`` runs count_exact with its hits added as
-    ``mode`` says (``ops.probe.EXACT_HITS``)."""
-
-    def __init__(self, mode: str):
-        self.mode = mode
-
-    def __enter__(self):
-        from strainscan_tpu_torch.ops import probe
-
-        self.old, probe.EXACT_HITS = probe.EXACT_HITS, self.mode
-
-    def __exit__(self, *exc):
-        from strainscan_tpu_torch.ops import probe
-
-        probe.EXACT_HITS = self.old
 
 
 def fp_table(keys: np.ndarray):
@@ -851,8 +825,8 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
             f"windows/s; bound {bound['whole'][0]} ms by {bound['whole'][1]} "
             f"({bound['whole'][2]} B) = {bound['whole'][0] / min(ms['kernel'])}"
             f" of the time [{tag}]")
-        # each kernel alone against its plain twin, and the ways of adding
-        # the hits
+        # each kernel alone against its plain twin, and the slice size of
+        # the add stage
         hits, n_hits = probe.exact_probe(scratch, words, table.table, **kw)
         stage = {
             "count_exact_kernel": cuda_ms(lambda: probe.exact_probe(
@@ -870,11 +844,15 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
         ones = torch.ones_like(listed, dtype=torch.int32)
         stage["exact_apply_library"] = cuda_ms(
             lambda: scratch.index_add_(0, listed, ones), 20)
-        modes = {}
-        for mode in EXACT_MODES:
-            with exact_hits(mode):
-                modes[mode] = cuda_ms(lambda: probe.count_exact(
+        slices = {}
+        chosen = probe.EXACT_SLICE
+        try:
+            for per in EXACT_SLICES:
+                probe.EXACT_SLICE = per
+                slices[per * 4 >> 20] = cuda_ms(lambda: probe.count_exact(
                     scratch, words, table.table, **kw), 20)
+        finally:
+            probe.EXACT_SLICE = chosen
         for name in ("count_exact_kernel", "exact_apply_kernel"):
             log(f"[exact] {name} alone at {BATCH} x {length}: {stage[name]} "
                 f"ms, plain {stage[name.replace('_kernel', '_plain')]} ms, "
@@ -882,9 +860,10 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
                 f"ms (index_add_ of the listed ids); "
                 f"bound {bound[name][0]} ms by {bound[name][1]} "
                 f"({bound[name][2]} B) [{tag}]")
-        log(f"[exact] count_exact at {BATCH} x {length} by how it adds its "
-            f"hits: {modes} ms (the wrapper uses {probe.EXACT_HITS}) [{tag}]")
-        timing[length] = dict(ms=ms, bound=bound, stage=stage, modes=modes)
+        log(f"[exact] count_exact at {BATCH} x {length} by MiB of counts "
+            f"per slice of exact_apply_kernel: {slices} ms (the wrapper uses "
+            f"{chosen * 4 >> 20}) [{tag}]")
+        timing[length] = dict(ms=ms, bound=bound, stage=stage, slices=slices)
         if length == MAXLEN:
             timing["parts"] = exact_parts(dev, tag, table.table, kt.n_keys,
                                           win, min(ms["kernel"]))
@@ -1474,8 +1453,7 @@ def run(dev, tag: str) -> list:
                 "bound_ms": ex150["bound"][name][0]},
             "library_ms": ex256["stage"].get(
                 name.replace("_kernel", "_library"))})
-    kernels += [{
-    }, {
+    kernels.append({
         "name": "row_gather_kernel", "route": "cuda",
         "source": src + "row_gather.cu",
         "replaces": "benchmarks/probe_bench3.py:142",
@@ -1483,8 +1461,7 @@ def run(dev, tag: str) -> list:
         "max_abs_err": measure["err"],
         "ms": measure["ms"], "plain_ms": measure["plain_ms"],
         "bound_ms": measure["bound"][0], "bound_by": measure["bound"][1],
-        "library_ms": None,
-    }]
+        "library_ms": None})
     designs = {length: {name: min(v) for name, v in d["ms"].items()}
                for length, d in fp["designs"].items()}
     log(f"[count] count_fp per batch of {BATCH} reads, ms by design and L: "

@@ -1,12 +1,12 @@
-// Hand-written Hopper (sm_90a) kernel of the exact probe mode.
+// Hand-written Hopper (sm_90a) kernels of the exact probe mode.
 //
-// What it replaces
-// ----------------
-// count_exact_kernel is the exact-mode count of the JAX package, which is
-// plain XLA there, not Pallas: strainscan_tpu/ops/count.py::_count_core
-// (count_batch on raw uint8 codes, count_batch_packed on 2-bit words +
-// validity bits) around strainscan_tpu/index/hashtable.py::lookup_device.
-// Per window:
+// What they replace
+// -----------------
+// count_exact_kernel and exact_apply_kernel are, together, the exact-mode
+// count of the JAX package, which is plain XLA there, not Pallas:
+// strainscan_tpu/ops/count.py::_count_core (count_batch on raw uint8 codes,
+// count_batch_packed on 2-bit words + validity bits) around
+// strainscan_tpu/index/hashtable.py::lookup_device.  Per window:
 //   * the key of the window packed 5'-first, min(fwd, revcomp) with
 //     canonical (the rolling-key walker of kmer_window.cuh);
 //   * the UNSEEDED home row b = fmix(fmix(hi ^ 0x9E3779B9) ^ lo) & mask;
@@ -21,8 +21,8 @@
 //     invalid, padding or a miss (or whose id is not in [0, n_keys)) counts
 //     into the trash entry counts[n_keys], which the JAX scatter slices away.
 //
-// What bounds it on the card
-// --------------------------
+// What bounds them on the card
+// ----------------------------
 // At 28.6 M keys the table is 2^24 rows x 96 B = 1.6 GB, far outside the
 // 50 MB L2.  A batch of 65,536 reads of 150 bp has about 7.9 M windows, 0.47
 // per row, so each probe is a device-memory read of a row no other window
@@ -30,13 +30,13 @@
 // count_fp_bins.cu does for the 256 MiB fingerprint table, would stage
 // slices that are mostly unused).  Each hit then adds into a 114 MB counts
 // array, also larger than the L2.  Hashing is a few dozen integer
-// operations per window.  The kernel is bound by device memory, at the
-// rate it serves random 96 B rows and random 4 B count updates, which is
-// well below its streaming rate (chip_smoke.py times both alone beside the
-// kernel).
+// operations per window.  Both are random accesses to device memory, and
+// on an H100 they add up: the rows alone and the adds alone each took about
+// half of a kernel that did both (chip_smoke.py times the parts).
 //
 // What the design does about it
 // -----------------------------
+// count_exact_kernel (the probe):
 // * A block takes kRows reads and stages their payload in shared memory
 //   with 16 B loads (stage_span).  For each read it finds where the valid
 //   windows end (vlen, or the last set validity bit), so padding windows are
@@ -45,19 +45,25 @@
 //   shared walker, in step, and append every valid window's (hi, lo, row,
 //   probes left) to the warp's queue in shared memory (a ballot gives each
 //   lane its place; no atomics).
-// * Whenever the queue holds 32 x kU windows the warp drains it: each lane
-//   takes kU windows and issues all kU x six 16 B row loads back to back
-//   before it resolves any, so a warp has kU rows per lane in flight.  A
-//   window that does not hit in its row goes back on the queue with the
-//   next row, for a later drain, until its max_probe rows are read.
-// * Hits add to counts with fire-and-forget reductions (red) marked
-//   evict-last in the L2, so the table rows streaming through the L2 push
-//   the count sectors out later; the block adds its trash (windows minus
-//   hits) with one atomic.  Without the hint the row reads and the count
-//   reductions took about as long as each alone added up on an H100.
+// * Whenever the queue holds 32 x kUnroll windows the warp drains it: each
+//   lane takes kUnroll windows and issues all kUnroll x six 16 B row loads
+//   back to back before it resolves any.  A window that does not hit in its
+//   row goes back on the queue with the next row, for a later drain, until
+//   its max_probe rows are read.
+// * A hit does not touch counts: its id goes into the block's region of a
+//   hit list (kRows * M ids, so it cannot overflow), coalesced per warp.
+//   The block adds its trash (windows minus hits) with one atomic and
+//   writes its region's length.
+// exact_apply_kernel (the adds): the grid walks the id space one slice at a
+// time (EXACT_SLICE ids of ops/probe.py, 16 MiB of counts); each block
+// prefetches its share of the slice into the L2 with bulk prefetches, then
+// reads its regions of the list with streaming loads, eight ids in flight
+// per thread, and adds one for every id inside the slice with a
+// fire-and-forget reduction (red) marked evict-last.  The list is read
+// once per slice, and every add lands in the L2.
 //
-// The entry point launches on the caller's stream, does not synchronise, and
-// returns cudaGetLastError() so the wrapper can raise on a refused launch.
+// The entry points launch on the caller's stream, do not synchronise, and
+// return cudaGetLastError() so the wrapper can raise on a refused launch.
 
 #include "kmer_window.cuh"
 
@@ -69,6 +75,9 @@ constexpr int kRows = 64;       // reads per block (two per lane of warp 0)
 constexpr int kRun = 32;        // windows per work item
 constexpr int kRowVecs = 6;     // 24 int32 = 6 x int4 per table row
 constexpr int kUnroll = 2;      // table rows each lane has in flight
+constexpr int kApplyThreads = 256;
+constexpr int kApplyBatch = 8;  // ids each thread of the add stage loads
+constexpr int kPrefetchChunk = 1 << 16;   // bytes per prefetch instruction
 
 // An L2 policy that keeps the lines it touches longer than others.
 __device__ __forceinline__ uint64_t evict_last_policy() {
@@ -85,6 +94,13 @@ __device__ __forceinline__ void add_one(int32_t* p, uint64_t policy) {
                : "memory");
 }
 
+// Prefetches the bytes [p, p + n) into the L2 (p 16 B aligned, n a multiple
+// of 16).
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t n) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(n)
+               : "memory");
+}
+
 // A window of a warp's queue that still has a row to probe (16 B, so a lane
 // reads it in one shared-memory load).
 struct __align__(16) Queue {
@@ -92,37 +108,34 @@ struct __align__(16) Queue {
   int left;   // rows left to probe, this one included
 };
 
-template <int kU, bool kList>
 struct Probe {
-  Queue* q;                 // this warp's queue, 32 * (kU + 1) entries
+  Queue* q;                 // this warp's queue, 32 * (kUnroll + 1) entries
   int n;                    // entries queued (the same on every lane)
-  int hits;                 // this lane's hits
   const int4* table;
   uint32_t mask;
-  int32_t* counts;
   int64_t n_keys;
-  uint64_t policy;          // evict-last, for the count reductions
-  int32_t* list;            // kList: the block's region of the hit list
-  int* s_n;                 // kList: ids in it so far (shared)
+  int32_t* list;            // the block's region of the hit list
+  int* s_n;                 // ids in it so far (shared)
 
-  // Take the last min(n, 32 kU) entries, kU per lane; load their rows,
-  // resolve them, and queue each window that misses and has rows left.
+  // Take the last min(n, 32 kUnroll) entries, kUnroll per lane; load their
+  // rows, resolve them, list the hits, and queue each window that misses
+  // and has rows left.
   __device__ __forceinline__ void drain(int lane) {
-    const int take = min(n, 32 * kU);
+    const int take = min(n, 32 * kUnroll);
     const int first = n - take;
     __syncwarp();   // the entries other lanes wrote are visible
-    Queue e[kU];
-    bool has[kU];
+    Queue e[kUnroll];
+    bool has[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       has[u] = u * 32 + lane < take;
       if (has[u]) e[u] = q[first + u * 32 + lane];
     }
     n = first;
     __syncwarp();   // every lane has its entries before the requeue writes
-    int4 v[kU][kRowVecs];
+    int4 v[kUnroll][kRowVecs];
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       if (has[u]) {
         const int4* row = table + static_cast<int64_t>(e[u].row) * kRowVecs;
 #pragma unroll
@@ -130,7 +143,7 @@ struct Probe {
       }
     }
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
+    for (int u = 0; u < kUnroll; ++u) {
       int32_t id = -1;
       if (has[u]) {
         int32_t s[4 * kRowVecs];
@@ -148,20 +161,14 @@ struct Probe {
               static_cast<uint32_t>(s[3 * t + 1]) == e[u].lo && val > id)
             id = val;   // val >= 0 since id starts at -1
         }
-        if (!kList && id >= 0 && id < n_keys) {
-          add_one(counts + id, policy);
-          ++hits;
-        }
       }
-      if (kList) {   // append this round's hits to the block's region
-        const bool hit = id >= 0 && id < n_keys;
-        const unsigned hm = __ballot_sync(kFullMask, hit);
-        if (hm) {
-          int at = 0;
-          if (lane == 0) at = atomicAdd(s_n, __popc(hm));
-          at = __shfl_sync(kFullMask, at, 0);
-          if (hit) list[at + __popc(hm & ((1u << lane) - 1u))] = id;
-        }
+      const bool hit = id >= 0 && id < n_keys;
+      const unsigned hm = __ballot_sync(kFullMask, hit);
+      if (hm) {
+        int at = 0;
+        if (lane == 0) at = atomicAdd(s_n, __popc(hm));
+        at = __shfl_sync(kFullMask, at, 0);
+        if (hit) list[at + __popc(hm & ((1u << lane) - 1u))] = id;
       }
       const bool again = has[u] && id < 0 && e[u].left > 1;
       const unsigned m = __ballot_sync(kFullMask, again);
@@ -196,14 +203,14 @@ __device__ __forceinline__ int valid_end(const Reads& b, int64_t row,
   return max(0, min(end - b.k + 1, b.M));
 }
 
-template <int kForm, int kU, bool kList>
+template <int kForm>
 __global__ void __launch_bounds__(kThreads, 2)
 count_exact_kernel(Reads b, const int4* __restrict__ table, uint32_t mask,
                    int max_probe, int32_t* __restrict__ counts,
                    int64_t n_keys, int32_t* __restrict__ list,
                    int32_t* __restrict__ n_list) {
   extern __shared__ __align__(16) uint8_t s_pay[];   // staged payload
-  __shared__ Queue s_q[kWarps][32 * (kU + 1)];
+  __shared__ Queue s_q[kWarps][32 * (kUnroll + 1)];
   __shared__ int s_jend[kRows];
   __shared__ int s_start[kRows + 1];   // first item of each row
   __shared__ int s_hits;
@@ -252,11 +259,8 @@ count_exact_kernel(Reads b, const int4* __restrict__ table, uint32_t mask,
   __syncthreads();
 
   const int items = s_start[kRows];
-  Probe<kU, kList> pr{s_q[warp], 0,      0,      table,
-                      mask,      counts, n_keys, evict_last_policy(),
-                      kList ? list + int64_t{blockIdx.x} * kRows * b.M
-                            : nullptr,
-                      &s_hits};
+  Probe pr{s_q[warp], 0,      table, mask, n_keys,
+           list + int64_t{blockIdx.x} * kRows * b.M, &s_hits};
   const bool canonical = b.canonical;
   const int k = b.k;
   for (int base = warp * 32; base < items; base += kThreads) {
@@ -290,32 +294,18 @@ count_exact_kernel(Reads b, const int4* __restrict__ table, uint32_t mask,
                 Queue{khi, klo, home, max_probe};
           }
           pr.n += __popc(m);
-          while (pr.n >= 32 * kU) pr.drain(lane);
+          while (pr.n >= 32 * kUnroll) pr.drain(lane);
         });
   }
   while (pr.n > 0) pr.drain(lane);
 
-  if (!kList) {
-    const int hits = warp_sum(pr.hits);
-    if (lane == 0 && hits) atomicAdd(&s_hits, hits);
-  }
   __syncthreads();
   if (threadIdx.x == 0) {
     const int trash = rows * b.M - s_hits;
     if (trash) atomicAdd(counts + n_keys, trash);
-    if (kList) n_list[blockIdx.x] = s_hits;
+    n_list[blockIdx.x] = s_hits;
   }
 }
-
-// Prefetches the bytes [p, p + n) into the L2 (p 16 B aligned, n a multiple
-// of 16).
-__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t n) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(n)
-               : "memory");
-}
-
-constexpr int kApplyThreads = 256;
-constexpr int kPrefetchChunk = 1 << 16;   // bytes per prefetch instruction
 
 // The add stage: counts[id] += 1 for every id of the hit list.  Block
 // (g, s) takes the ids of slice s, [s * slice, (s + 1) * slice), from the
@@ -323,7 +313,6 @@ constexpr int kPrefetchChunk = 1 << 16;   // bytes per prefetch instruction
 // 1/G share of the slice's counts into the L2.  The grid runs slice after
 // slice (blockIdx.y is the slow index), so each slice's counts sit in the
 // L2 while its adds land, and the list is read once per slice.
-template <bool kPrefetch>
 __global__ void __launch_bounds__(kApplyThreads)
 exact_apply_kernel(const int32_t* __restrict__ list,
                    const int32_t* __restrict__ n_list, int64_t region,
@@ -331,32 +320,36 @@ exact_apply_kernel(const int32_t* __restrict__ list,
                    int64_t n_keys, int64_t slice) {
   const int64_t lo = int64_t{blockIdx.y} * slice;
   const int64_t hi = lo + slice < n_keys ? lo + slice : n_keys;
-  if (kPrefetch) {
-    // this block's share of the slice's whole 16 B chunks
-    const uintptr_t a0 =
-        (reinterpret_cast<uintptr_t>(counts + lo) + 15) & ~uintptr_t{15};
-    const uintptr_t a1 =
-        reinterpret_cast<uintptr_t>(counts + hi) & ~uintptr_t{15};
-    if (a1 > a0) {
-      const uintptr_t share =
-          ((a1 - a0 + gridDim.x - 1) / gridDim.x + 15) & ~uintptr_t{15};
-      const uintptr_t s0 = a0 + share * blockIdx.x;
-      const uintptr_t s1 = a1 < s0 + share ? a1 : s0 + share;
-      for (uintptr_t o = s0 + uintptr_t{threadIdx.x} * kPrefetchChunk;
-           o < s1; o += uintptr_t{kApplyThreads} * kPrefetchChunk) {
-        const uintptr_t n = s1 - o < kPrefetchChunk ? s1 - o : kPrefetchChunk;
-        prefetch_l2(reinterpret_cast<const void*>(o),
-                    static_cast<uint32_t>(n));
-      }
+  // this block's share of the slice's whole 16 B chunks
+  const uintptr_t a0 =
+      (reinterpret_cast<uintptr_t>(counts + lo) + 15) & ~uintptr_t{15};
+  const uintptr_t a1 = reinterpret_cast<uintptr_t>(counts + hi) &
+                       ~uintptr_t{15};
+  if (a1 > a0) {
+    const uintptr_t share =
+        ((a1 - a0 + gridDim.x - 1) / gridDim.x + 15) & ~uintptr_t{15};
+    const uintptr_t s0 = a0 + share * blockIdx.x;
+    const uintptr_t s1 = a1 < s0 + share ? a1 : s0 + share;
+    for (uintptr_t o = s0 + uintptr_t{threadIdx.x} * kPrefetchChunk; o < s1;
+         o += uintptr_t{kApplyThreads} * kPrefetchChunk) {
+      const uintptr_t n = s1 - o < kPrefetchChunk ? s1 - o : kPrefetchChunk;
+      prefetch_l2(reinterpret_cast<const void*>(o), static_cast<uint32_t>(n));
     }
   }
   const uint64_t policy = evict_last_policy();
   for (int r = blockIdx.x; r < n_regions; r += gridDim.x) {
     const int32_t* ids = list + r * region;
     const int n = n_list[r];
-    for (int i = threadIdx.x; i < n; i += kApplyThreads) {
-      const int32_t id = __ldcs(ids + i);
-      if (id >= lo && id < hi) add_one(counts + id, policy);
+    for (int i = threadIdx.x; i < n; i += kApplyThreads * kApplyBatch) {
+      int32_t id[kApplyBatch];
+#pragma unroll
+      for (int u = 0; u < kApplyBatch; ++u) {
+        const int j = i + u * kApplyThreads;
+        id[u] = j < n ? __ldcs(ids + j) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kApplyBatch; ++u)
+        if (id[u] >= lo && id[u] < hi) add_one(counts + id[u], policy);
     }
   }
 }
@@ -369,11 +362,11 @@ size_t exact_smem(const Reads& b, int form) {
   return s;
 }
 
-template <int kForm, bool kList>
+template <int kForm>
 cudaError_t launch(const Reads& b, const int4* table, uint32_t mask,
                    int max_probe, int32_t* counts, int64_t n_keys,
                    int32_t* list, int32_t* n_list, cudaStream_t stream) {
-  auto kernel = count_exact_kernel<kForm, kUnroll, kList>;
+  auto kernel = count_exact_kernel<kForm>;
   const size_t smem = exact_smem(b, kForm);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -381,24 +374,6 @@ cudaError_t launch(const Reads& b, const int4* table, uint32_t mask,
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
       b, table, mask, max_probe, counts, n_keys, list, n_list);
   return cudaGetLastError();
-}
-
-template <bool kList>
-cudaError_t launch_form(const Reads& b, int form, const int4* table,
-                        uint32_t mask, int max_probe, int32_t* counts,
-                        int64_t n_keys, int32_t* list, int32_t* n_list,
-                        cudaStream_t stream) {
-  switch (form) {
-    case kCodes:
-      return launch<kCodes, kList>(b, table, mask, max_probe, counts, n_keys,
-                                   list, n_list, stream);
-    case kVlen:
-      return launch<kVlen, kList>(b, table, mask, max_probe, counts, n_keys,
-                                  list, n_list, stream);
-    default:
-      return launch<kVbytes, kList>(b, table, mask, max_probe, counts,
-                                    n_keys, list, n_list, stream);
-  }
 }
 
 }  // namespace
@@ -412,9 +387,8 @@ int count_exact_rows_per_block() { return kRows; }
 // Exactly one payload form: raw codes uint8 [n_rows, L], or words uint32
 // [n_rows, W] with vlen uint16 [n_rows] or vbytes uint8 [n_rows, VB].
 // table int32 [n_buckets, 24] (16 B aligned); adds the trash into counts
-// int32 [n_keys + 1], and each hit either into counts (list null) or into
-// the hit list int32 [regions, rows * M], with each region's length in
-// n_list int32 [regions].
+// int32 [n_keys + 1]; lists the hit ids in list int32 [regions, rows * M]
+// and each region's length in n_list int32 [regions].
 int count_exact_launch(int device, const void* codes, const void* words,
                        const void* vlen, const void* vbytes, long long n_rows,
                        int W, int VB, int L, int k, int canonical,
@@ -426,28 +400,30 @@ int count_exact_launch(int device, const void* codes, const void* words,
   const Reads b = make_reads(codes, words, vlen, vbytes, n_rows, W, VB, L, k,
                              canonical);
   if (n_rows <= 0 || b.M <= 0) return static_cast<int>(cudaGetLastError());
-  const int form = form_of(codes, vlen);
   auto* t = static_cast<const int4*>(table);
   auto* c = static_cast<int32_t*>(counts);
   auto* l = static_cast<int32_t*>(list);
   auto* nl = static_cast<int32_t*>(n_list);
   auto s = static_cast<cudaStream_t>(stream);
   const uint32_t mask = n_buckets - 1u;
-  err = l != nullptr
-            ? launch_form<true>(b, form, t, mask, max_probe, c, n_keys, l, nl,
-                                s)
-            : launch_form<false>(b, form, t, mask, max_probe, c, n_keys, l,
-                                 nl, s);
+  switch (form_of(codes, vlen)) {
+    case kCodes:
+      err = launch<kCodes>(b, t, mask, max_probe, c, n_keys, l, nl, s);
+      break;
+    case kVlen:
+      err = launch<kVlen>(b, t, mask, max_probe, c, n_keys, l, nl, s);
+      break;
+    default:
+      err = launch<kVbytes>(b, t, mask, max_probe, c, n_keys, l, nl, s);
+  }
   return static_cast<int>(err);
 }
 
 // counts[id] += 1 for the first n_list[r] ids of each region r of list
-// int32 [n_regions, region], slice ids at a time (prefetch: each slice's
-// counts prefetched into the L2 first).
+// int32 [n_regions, region], slice ids at a time.
 int exact_apply_launch(int device, const void* list, const void* n_list,
                        long long region, int n_regions, void* counts,
-                       long long n_keys, long long slice, int prefetch,
-                       void* stream) {
+                       long long n_keys, long long slice, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_regions <= 0 || n_keys <= 0) return static_cast<int>(cudaGetLastError());
@@ -455,20 +431,14 @@ int exact_apply_launch(int device, const void* list, const void* n_list,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n_slices = (n_keys + slice - 1) / slice;
-  if (n_slices > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(n_regions < 8 * sms ? n_regions
-                                                           : 8 * sms),
-                  static_cast<unsigned>(n_slices));
-  auto s = static_cast<cudaStream_t>(stream);
-  auto* l = static_cast<const int32_t*>(list);
-  auto* nl = static_cast<const int32_t*>(n_list);
-  auto* c = static_cast<int32_t*>(counts);
-  if (prefetch)
-    exact_apply_kernel<true><<<grid, kApplyThreads, 0, s>>>(
-        l, nl, region, n_regions, c, n_keys, slice);
-  else
-    exact_apply_kernel<false><<<grid, kApplyThreads, 0, s>>>(
-        l, nl, region, n_regions, c, n_keys, slice);
+  if (slice <= 0 || n_slices > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // one wave of blocks per slice, so the slices run one after another
+  const int per_slice = n_regions < 8 * sms ? n_regions : 8 * sms;
+  exact_apply_kernel<<<dim3(per_slice, static_cast<unsigned>(n_slices)),
+                       kApplyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(list), static_cast<const int32_t*>(n_list),
+      region, n_regions, static_cast<int32_t*>(counts), n_keys, slice);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -107,7 +107,7 @@ def lib() -> ctypes.CDLL:
             so.count_exact_rows_per_block.restype = i
             so.count_exact_rows_per_block.argtypes = []
             so.exact_apply_launch.restype = i
-            so.exact_apply_launch.argtypes = [i, p, p, ll, i, p, ll, ll, i, p]
+            so.exact_apply_launch.argtypes = [i, p, p, ll, i, p, ll, ll, p]
             so.parent_count_exact_launch.restype = i
             so.parent_count_exact_launch.argtypes = [i, p, p, p, p, ll, i, i,
                                                      i, i, i, p, u, i, ll, p,

@@ -13,11 +13,14 @@
   ``fp_bin_probe_kernel`` (each bin's table rows staged in shared memory,
   its windows resolved there, one added to the hit slot or to the trash
   slot).  :func:`fp_bin_parity` holds each against its twin.
-* :func:`count_exact` -> ``count_exact_kernel`` (``csrc/count_exact.cu``):
-  the exact probe mode: each read's valid windows walked with the same
-  rolling key, queued per warp, then up to ``max_probe`` reads of the
-  interleaved exact-table row with ``EXACT_UNROLL`` rows in flight per
-  lane, and one added to the k-mer's id (or to the trash entry) in place.
+* :func:`count_exact`: the exact probe mode, in place, as two kernels
+  (``csrc/count_exact.cu``): :func:`exact_probe` -> ``count_exact_kernel``
+  (each read's valid windows walked with the same rolling key, queued per
+  warp, then up to ``max_probe`` reads of the interleaved exact-table row;
+  misses into the trash entry, hit ids into a list per block of reads) and
+  :func:`exact_apply` -> ``exact_apply_kernel`` (one added to each listed
+  id, one L2-sized slice of the id space at a time).  :func:`exact_parity`
+  holds each against its twin.
 
 Both count wrappers take a read batch in one of three payload forms: int32
 2-bit words with ``vlen`` (valid prefix lengths) or ``vbytes`` (validity
@@ -50,12 +53,6 @@ LAUNCHES = {"probe_prep_kernel": 0, "fp_bin_count_kernel": 0,
 # rows per chunk of the plain counts: bounds their [rows * M, row] gathers
 # (1.9 GB at 8192 x 226 x 64 int32 plus temporaries)
 PLAIN_CHUNK_ROWS = 8192
-# how count_exact adds its hits: "list" (count_exact_kernel lists them,
-# exact_apply_kernel adds them a slice of the id space at a time),
-# "list_prefetch" (the same, each slice prefetched into the L2 first) or
-# "direct" (count_exact_kernel adds each into counts); chip_smoke.py times
-# all three
-EXACT_HITS = "list_prefetch"
 
 
 def reset_launches() -> None:
@@ -645,8 +642,9 @@ def count_exact_plain(counts: torch.Tensor, words: torch.Tensor,
 # reads per block of count_exact_kernel (kRows of csrc/count_exact.cu): the
 # hit list holds one region of EXACT_ROWS * M ids per block
 EXACT_ROWS = 64
-# ids per slice of the add stage (16 MiB of counts, which the 50 MB L2 of
-# an H100 holds beside the list it streams); a multiple of 32
+# ids per slice of exact_apply_kernel: 16 MiB of counts, which the 50 MB L2
+# of an H100 holds beside the list it streams; chip_smoke.py times 8, 16
+# and 32 MiB
 EXACT_SLICE = 1 << 22
 
 
@@ -723,24 +721,18 @@ def exact_probe(counts: torch.Tensor, words: torch.Tensor,
     hits = torch.empty((n_reg, EXACT_ROWS * m), dtype=torch.int32,
                        device=words.device)
     n_hits = torch.empty(n_reg, dtype=torch.int32, device=words.device)
-    _launch_exact(counts, words, table, hits, n_hits, **kw)
-    return hits, n_hits
-
-
-def _launch_exact(counts, words, table, hits, n_hits, *, length, k,
-                  max_probe, canonical, vlen, vbytes) -> None:
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (row vector loads)")
     lib = _build.lib()
     if lib.count_exact_rows_per_block() != EXACT_ROWS:
         raise RuntimeError("EXACT_ROWS differs from csrc/count_exact.cu")
-    ptr = (lambda t: t.data_ptr() if t is not None else None)
     _build.check(lib.count_exact_launch(
         *_batch_args(words, vlen, vbytes, length, k, canonical),
         table.data_ptr(), table.shape[0], max_probe, counts.shape[0] - 1,
-        counts.data_ptr(), ptr(hits), ptr(n_hits), _stream(words)),
-        "count_exact_kernel launch")
+        counts.data_ptr(), hits.data_ptr(), n_hits.data_ptr(),
+        _stream(words)), "count_exact_kernel launch")
     LAUNCHES["count_exact_kernel"] += 1
+    return hits, n_hits
 
 
 def exact_apply_plain(counts: torch.Tensor, hits: torch.Tensor,
@@ -769,7 +761,7 @@ def exact_apply(counts: torch.Tensor, hits: torch.Tensor,
     _build.check(_build.lib().exact_apply_launch(
         counts.device.index, hits.data_ptr(), n_hits.data_ptr(),
         hits.shape[1], hits.shape[0], counts.data_ptr(), n_keys, EXACT_SLICE,
-        int(EXACT_HITS == "list_prefetch"), _stream(counts)),
+        _stream(counts)),
         "exact_apply_kernel launch")
     LAUNCHES["exact_apply_kernel"] += 1
     return counts
@@ -796,9 +788,6 @@ def count_exact(counts: torch.Tensor, words: torch.Tensor,
               vlen=vlen, vbytes=vbytes)
     if not _route(*route):
         return count_exact_plain(counts, words, table, **kw)
-    if EXACT_HITS == "direct":
-        _launch_exact(counts, words, table, None, None, **kw)
-        return counts
     return exact_apply(counts, *exact_probe(counts, words, table, **kw))
 
 

@@ -103,10 +103,10 @@ def test_probe_prep_kernel_edges_equal_plain(dev, case, k, canonical):
 def test_count_exact_kernel_edges_equal_plain(dev, case, canonical,
                                               monkeypatch):
     """The exact count's edge batches (tests/_torch_sim.py::exact_edge), in
-    every payload form and every way of adding the hits, against
-    count_exact_plain, and each of its two kernels against its twin; the
-    "unaligned" batch also as views whose payload spans start and end off
-    16 B."""
+    every payload form, against count_exact_plain, also with the add stage
+    over slices of 256 ids, and each of its two kernels against its twin;
+    the "unaligned" batch also as views whose payload spans start and end
+    off 16 B."""
     table, codes = exact_edge(case)
     tab = kmer_table_to_device(table, dev).table
     length = codes.shape[1]
@@ -123,18 +123,20 @@ def test_count_exact_kernel_edges_equal_plain(dev, case, canonical,
             want = torch.zeros(table.n_keys + 1, dtype=torch.int32,
                                device=dev)
             probe.count_exact_plain(want, rd, tab, **kw)
-            for mode in ("direct", "list", "list_prefetch"):
-                monkeypatch.setattr(probe, "EXACT_HITS", mode)
-                got = torch.zeros_like(want)
-                before = {n: probe.LAUNCHES[n] for n in EXACT_KERNELS}
-                probe.count_exact(got, rd, tab, **kw)
-                torch.cuda.synchronize()
-                assert {n: probe.LAUNCHES[n] - before[n]
-                        for n in EXACT_KERNELS} == {
-                    "count_exact_kernel": 1,
-                    "exact_apply_kernel": int(mode != "direct")}
-                assert torch.equal(got, want), (name, mode, rd.shape)
+            got = torch.zeros_like(want)
+            before = {n: probe.LAUNCHES[n] for n in EXACT_KERNELS}
+            probe.count_exact(got, rd, tab, **kw)
+            torch.cuda.synchronize()
+            assert {n: probe.LAUNCHES[n] - before[n]
+                    for n in EXACT_KERNELS} == dict.fromkeys(EXACT_KERNELS, 1)
+            assert torch.equal(got, want), (name, rd.shape)
             assert int(want.sum()) == rd.shape[0] * (length - 30)
+            # the add stage over many slices of the id space
+            sliced = torch.zeros_like(want)
+            monkeypatch.setattr(probe, "EXACT_SLICE", 256)
+            probe.count_exact(sliced, rd, tab, **kw)
+            monkeypatch.undo()
+            assert torch.equal(sliced, want), (name, rd.shape)
             stage = probe.exact_parity(rd, tab, table.n_keys, **kw)
             assert not any(stage.values()), (name, stage)
 

@@ -121,6 +121,40 @@ def test_count_exact_edges_equal_jax(case, canonical):
         assert want[True].sum() >= 20
 
 
+@pytest.mark.parametrize("case", EXACT_EDGES)
+def test_exact_probe_then_apply_equals_count_exact(case):
+    """The two stages of count_exact on the CPU (their plain twins): the
+    probe lists each block of EXACT_ROWS reads' hit ids in its own region
+    and adds every other window to the trash entry; adding the listed ids
+    gives count_exact's counts."""
+    table, codes = exact_edge(case)
+    dt = kmer_table_to_device(table, CPU)
+    length = codes.shape[1]
+    for name, (reads, valid) in exact_forms(codes).items():
+        kw = dict(length=length, k=K, max_probe=dt.max_probe, **valid)
+        want = torch.zeros(table.n_keys + 1, dtype=torch.int32)
+        probe.count_exact(want, reads, dt.table, **kw)
+        got = torch.zeros_like(want)
+        hits, n_hits = probe.exact_probe(got, reads, dt.table, **kw)
+        n_reg = -(-codes.shape[0] // probe.EXACT_ROWS)
+        assert hits.shape == (n_reg, probe.EXACT_ROWS * (length - K + 1))
+        assert int(n_hits.sum()) == int(want[:-1].sum()), name
+        assert int(got.sum()) == int(got[-1]) == int(want[-1]), name
+        for r in range(n_reg):   # each region holds its own reads' hits
+            rows = torch.zeros(table.n_keys + 1, dtype=torch.int32)
+            probe.count_exact(rows, reads[r * probe.EXACT_ROWS:
+                                          (r + 1) * probe.EXACT_ROWS],
+                              dt.table, **{**kw, **{
+                                  f: v[r * probe.EXACT_ROWS:
+                                       (r + 1) * probe.EXACT_ROWS]
+                                  for f, v in valid.items()}})
+            ids = hits[r, :int(n_hits[r])].to(torch.int64)
+            assert torch.equal(torch.bincount(
+                ids, minlength=table.n_keys + 1)[:-1], rows[:-1].long())
+        probe.exact_apply(got, hits, n_hits)
+        assert torch.equal(got, want), name
+
+
 def test_kmer_table_to_device_cached_per_device():
     rng = np.random.default_rng(2)
     _, keys = _genome_keys(rng, glen=500)
