@@ -390,41 +390,6 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def parent_probe_prep(codes, *, k: int, n_buckets: int, seed: int,
-                      canonical: bool = False):
-    """The previous probe_prep_kernel design on the same inputs."""
-    import torch
-
-    from strainscan_tpu_torch.ops import _build
-
-    b, length = codes.shape
-    bucket = torch.empty((b, length - k + 1), dtype=torch.int32,
-                         device=codes.device)
-    fp = torch.empty_like(bucket)
-    _build.check(_build.lib().parent_probe_prep_launch(
-        codes.device.index, codes.data_ptr(), b, length, k, int(canonical),
-        n_buckets, seed & 0xFFFFFFFF, bucket.data_ptr(), fp.data_ptr(),
-        torch.cuda.current_stream(codes.device).cuda_stream),
-        "parent probe_prep launch")
-    return bucket, fp
-
-
-def parent_count_exact(counts, words, table, *, length: int, k: int,
-                       max_probe: int, canonical: bool = False, vlen=None,
-                       vbytes=None):
-    """The previous count_exact_kernel design on the same inputs."""
-    import torch
-
-    from strainscan_tpu_torch.ops import _build, probe
-
-    _build.check(_build.lib().parent_count_exact_launch(
-        *probe._batch_args(words, vlen, vbytes, length, k, canonical),
-        table.data_ptr(), table.shape[0], max_probe, counts.shape[0] - 1,
-        counts.data_ptr(), torch.cuda.current_stream(words.device)
-        .cuda_stream), "parent count_exact launch")
-    return counts
-
-
 def exact_payloads(clean: np.ndarray, dirty: np.ndarray, dev) -> list:
     """A batch of uint8 code rows in the three payload forms the exact
     count takes, ``[(form, reads, {validity kwarg}), ...]`` on ``dev``:
@@ -542,32 +507,30 @@ def phase_count(dev, tag: str) -> dict:
     log(f"[count] one batch equals the host oracle ({wkeys.size} windows, "
         f"{int((slots >= 0).sum())} hits)")
 
-    # probe_prep_kernel against its plain twin and the parent design at
-    # B = 65,536 x L = 150 and with the reads padded to L = MAXLEN
+    # probe_prep_kernel against its plain twin at B = 65,536 x L = 150 and
+    # with the reads padded to L = MAXLEN
     pkw = dict(k=K, n_buckets=fpt.n_buckets, seed=fpt.seed)
     prep = {}
     for length in (READ_LEN, MAXLEN):
         padded = np.full((BATCH, length), 4, np.uint8)
         padded[:, :READ_LEN] = reads[:BATCH]
         codes = torch.from_numpy(padded).to(dev)
-        got, want = probe.probe_prep(codes, **pkw), parent_probe_prep(codes,
-                                                                      **pkw)
+        got, want = probe.probe_prep(codes, **pkw), probe.probe_prep_plain(
+            codes, **pkw)
         sync(dev)
         check(all(torch.equal(x, y) for x, y in zip(got, want)),
-              f"probe_prep_kernel != the parent design at L={length}")
+              f"probe_prep_kernel != plain at L={length}")
         fns = {"kernel": (lambda: probe.probe_prep(codes, **pkw), 20),
-               "parent": (lambda: parent_probe_prep(codes, **pkw), 20),
                "plain": (lambda: probe.probe_prep_plain(codes, **pkw), 3)}
         ms = {name: [] for name in fns}
-        for name in ("plain", "parent", "kernel", "kernel", "parent",
-                     "plain"):
+        for name in ("plain", "kernel", "kernel", "plain"):
             fn, iters = fns[name]
             ms[name].append(cuda_ms(fn, iters))
         m = length - K + 1
         bound = bound_ms(BATCH * length + BATCH * m * 8,
                          BATCH * m * HASH_OPS)
         log(f"[count] probe_prep_kernel at {BATCH} x {length}: {ms['kernel']} "
-            f"ms, parent design {ms['parent']} ms, plain {ms['plain']} ms; "
+            f"ms, plain {ms['plain']} ms; "
             f"bound {bound[0]} ms by {bound[1]} = "
             f"{bound[0] / min(ms['kernel'])} of the kernel's time [{tag}]")
         prep[length] = dict(ms=ms, bound=bound)
@@ -782,10 +745,9 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
     log(f"[exact] one batch equals KmerTable.lookup_host + bincount "
         f"({wkeys.size} windows, {int((hits >= 0).sum())} hits)")
 
-    # the kernel against its plain twin and the parent design where the
-    # exact stream runs it (the reads padded to L = MAXLEN, vbytes: what
-    # iter_payloads ships) and at L = 150; each one's bound from this
-    # batch's data
+    # the count against its plain twin where the exact stream runs it (the
+    # reads padded to L = MAXLEN, vbytes: what iter_payloads ships) and at
+    # L = 150; each one's bound from this batch's data
     timing = {}
     for length in (MAXLEN, READ_LEN):
         padded = np.full((BATCH, length), 4, np.uint8)
@@ -796,32 +758,27 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
         words, valid_t = payload[1].to(dev), payload[2].to(dev)
         kw = dict(length=length, k=K, max_probe=kt.max_probe,
                   vbytes=valid_t)
-        outs = [torch.zeros_like(pipe.counts) for _ in range(3)]
-        for fn, c in zip((probe.count_exact, probe.count_exact_plain,
-                          parent_count_exact), outs):
+        outs = [torch.zeros_like(pipe.counts) for _ in range(2)]
+        for fn, c in zip((probe.count_exact, probe.count_exact_plain), outs):
             fn(c, words, table.table, **kw)
         sync(dev)
-        check(torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2]),
-              f"count_exact at L={length}: kernel, plain and parent differ")
+        check(torch.equal(outs[0], outs[1]),
+              f"count_exact at L={length}: kernels and plain differ")
         scratch = outs[0]
         fns = {
             "kernel": (lambda: probe.count_exact(scratch, words, table.table,
                                                  **kw), 20),
-            "parent": (lambda: parent_count_exact(scratch, words, table.table,
-                                                  **kw), 20),
             "plain": (lambda: probe.count_exact_plain(scratch, words,
                                                       table.table, **kw), 3)}
         ms = {name: [] for name in fns}
-        for name in ("plain", "parent", "kernel", "kernel", "parent",
-                     "plain"):
+        for name in ("plain", "kernel", "kernel", "plain"):
             fn, iters = fns[name]
             ms[name].append(cuda_ms(fn, iters))
         win = exact_windows(kt, padded)
         bound = exact_bound(kt, win, words.numel() * 4 + valid_t.numel())
         windows = BATCH * (length - K + 1)
         log(f"[exact] count_exact at {BATCH} x {length} (vbytes; both "
-            f"kernels): {ms['kernel']} ms, parent design {ms['parent']} ms, "
-            f"plain {ms['plain']} ms; {windows / (min(ms['kernel']) / 1e3)} "
+            f"kernels): {ms['kernel']} ms, plain {ms['plain']} ms; {windows / (min(ms['kernel']) / 1e3)} "
             f"windows/s; bound {bound['whole'][0]} ms by {bound['whole'][1]} "
             f"({bound['whole'][2]} B) = {bound['whole'][0] / min(ms['kernel'])}"
             f" of the time [{tag}]")

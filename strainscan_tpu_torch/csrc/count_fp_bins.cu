@@ -73,6 +73,11 @@ struct Batch {
   int shift;               // bin = bucket >> shift
 };
 
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
 // Calls f(bucket, fp) for every valid window j in [j0, j0 + kRun) of row
 // `row` (the shared walker of kmer_window.cuh, reading the payload from
 // device memory); returns how many there were.  With vlen the walk stops

@@ -20,7 +20,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 SOURCES = ("probe_count.cu", "count_fp_bins.cu", "count_exact.cu",
-           "row_gather.cu", "parent_kernels.cu")
+           "row_gather.cu")
 HEADERS = ("kmer_window.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -108,13 +108,6 @@ def lib() -> ctypes.CDLL:
             so.count_exact_rows_per_block.argtypes = []
             so.exact_apply_launch.restype = i
             so.exact_apply_launch.argtypes = [i, p, p, ll, i, p, ll, ll, p]
-            so.parent_count_exact_launch.restype = i
-            so.parent_count_exact_launch.argtypes = [i, p, p, p, p, ll, i, i,
-                                                     i, i, i, p, u, i, ll, p,
-                                                     p]
-            so.parent_probe_prep_launch.restype = i
-            so.parent_probe_prep_launch.argtypes = [i, p, ll, i, i, i, u, u,
-                                                    p, p, p]
             so.row_gather_launch.restype = i
             so.row_gather_launch.argtypes = [i, p, ll, i, p, ll, i, i, p, p]
             so.cuda_error_string.restype = ctypes.c_char_p
