@@ -34,9 +34,8 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    events, in turns): end-to-end reads/s of both modes; probe_prep_kernel
    against its plain twin at B = 65,536 x L = 150 and padded to L = 256;
    count_exact where the exact stream runs it (65,536 reads padded to
-   L = 256, vbytes) and at L = 150 against its plain twin, each of its
-   kernels alone, and its add stage at 8, 16 and 32 MiB of counts per
-   slice; count_fp at identify's shape (65,536 reads of 150 bp padded to
+   L = 256, vbytes) and at L = 150 against its plain twin, and each of its
+   kernels alone; count_fp at identify's shape (65,536 reads of 150 bp padded to
    L = 256, vlen) and at L = 150 against its plain twin, each binned kernel
    held against its twin there and timed alone, and count_fp at 1, 4 and
    16 blocks per SM of its count and scatter kernels.  Every kernel's
@@ -55,7 +54,8 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    2 x 2 mesh whose four positions are all that card.  The sharded exact
    count (sharded_count) and the sharded fp pipeline (count_sample with
    shard_min_kmers=1) over phase 3's reads must equal phase 3's
-   single-device counts; phase 4's samples identified on the mesh with
+   single-device counts (the sharded exact count three times over);
+   phase 4's samples identified on the mesh with
    shard_min_kmers=1, shard_min_l2_rows=1 must give reports byte-identical
    to phase 4's GPU reports, with fp_bin_probe_kernel launched once per
    mesh position per batch; and a 2-process gloo run of ``batch-identify`` on
@@ -138,8 +138,8 @@ FP_KERNELS = ("fp_bin_count_kernel", "bin_scan_kernel",
               "fp_bin_scatter_kernel", "fp_bin_probe_kernel")
 # the kernels of count_exact, in launch order
 EXACT_KERNELS = ("count_exact_kernel", "exact_apply_kernel")
-# ids per slice of exact_apply_kernel that phase 3 times (8, 16, 32 MiB)
-EXACT_SLICES = (1 << 21, 1 << 22, 1 << 23)
+# runs of phase 5's sharded exact count, each held against phase 3's counts
+SHARDED_REPS = 3
 # integer operations per hashed window: four fmix32 of 8 operations, the
 # seed and constant XORs, and the rolling forward and reverse keys
 HASH_OPS = 44
@@ -782,8 +782,7 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
             f"windows/s; bound {bound['whole'][0]} ms by {bound['whole'][1]} "
             f"({bound['whole'][2]} B) = {bound['whole'][0] / min(ms['kernel'])}"
             f" of the time [{tag}]")
-        # each kernel alone against its plain twin, and the slice size of
-        # the add stage
+        # each kernel alone against its plain twin
         hits, n_hits = probe.exact_probe(scratch, words, table.table, **kw)
         stage = {
             "count_exact_kernel": cuda_ms(lambda: probe.exact_probe(
@@ -795,21 +794,11 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
             "exact_apply_plain": cuda_ms(lambda: probe.exact_apply_plain(
                 scratch, hits, n_hits), 3)}
         # the library call that adds the same ids: index_add_ over the
-        # listed ids, gathered out of their regions beforehand
-        listed = hits[torch.arange(hits.shape[1], device=dev)[None, :]
-                      < n_hits[:, None]].to(torch.int64)
+        # listed ids, gathered out of the hit list beforehand
+        listed = probe.listed_ids(hits, n_hits)
         ones = torch.ones_like(listed, dtype=torch.int32)
         stage["exact_apply_library"] = cuda_ms(
             lambda: scratch.index_add_(0, listed, ones), 20)
-        slices = {}
-        chosen = probe.EXACT_SLICE
-        try:
-            for per in EXACT_SLICES:
-                probe.EXACT_SLICE = per
-                slices[per * 4 >> 20] = cuda_ms(lambda: probe.count_exact(
-                    scratch, words, table.table, **kw), 20)
-        finally:
-            probe.EXACT_SLICE = chosen
         for name in ("count_exact_kernel", "exact_apply_kernel"):
             log(f"[exact] {name} alone at {BATCH} x {length}: {stage[name]} "
                 f"ms, plain {stage[name.replace('_kernel', '_plain')]} ms, "
@@ -817,50 +806,10 @@ def phase_exact(dev, tag: str, ctx: dict) -> dict:
                 f"ms (index_add_ of the listed ids); "
                 f"bound {bound[name][0]} ms by {bound[name][1]} "
                 f"({bound[name][2]} B) [{tag}]")
-        log(f"[exact] count_exact at {BATCH} x {length} by MiB of counts "
-            f"per slice of exact_apply_kernel: {slices} ms (the wrapper uses "
-            f"{chosen * 4 >> 20}) [{tag}]")
-        timing[length] = dict(ms=ms, bound=bound, stage=stage, slices=slices)
-        if length == MAXLEN:
-            timing["parts"] = exact_parts(dev, tag, table.table, kt.n_keys,
-                                          win, min(ms["kernel"]))
+        timing[length] = dict(ms=ms, bound=bound, stage=stage)
     return dict(ids=ids, launches=launches, timing=timing,
                 per_sample={name: n // COUNT_REPS
                             for name, n in launches.items()})
-
-
-def exact_parts(dev, tag: str, table, n_keys: int, win: dict,
-                kernel_ms: float) -> dict:
-    """Where count_exact's time goes: the batch's first-probe rows read
-    alone (row_gather_kernel over the same 96 B rows, in window order) and
-    its count updates alone (index_add_ of one into each hit id, in window
-    order), beside the whole kernel."""
-    import torch
-
-    from strainscan_tpu_torch.ops import gather
-
-    home = torch.from_numpy(win["home"].astype(np.int32)).to(dev)
-    hit = win["ids"][win["ids"] >= 0]
-    ids = torch.from_numpy(hit.astype(np.int64)).to(dev)
-    ones = torch.ones(ids.shape[0], dtype=torch.int32, device=dev)
-    counts = torch.zeros(n_keys + 1, dtype=torch.int32, device=dev)
-    rows_ms = cuda_ms(lambda: gather.row_gather_xor(table, home, tile=2048,
-                                                    nbuf=16), 20)
-    adds_ms = cuda_ms(lambda: counts.index_add_(0, ids, ones), 20)
-    # the same updates in id order, and grouped by quarter of the id space
-    # (random order inside a quarter, which the L2 can hold)
-    in_order = ids.sort().values
-    quarter = ids[torch.sort(ids // (n_keys // 4 + 1), stable=True).indices]
-    sorted_ms = cuda_ms(lambda: counts.index_add_(0, in_order, ones), 20)
-    quarter_ms = cuda_ms(lambda: counts.index_add_(0, quarter, ones), 20)
-    log(f"[exact] count_exact_kernel's parts at {BATCH} reads: "
-        f"{home.shape[0]} first-probe rows of 96 B alone {rows_ms} ms "
-        f"({home.shape[0] * 96 / rows_ms / 1e9} TB/s of row bytes; "
-        f"row_gather_kernel), {ids.shape[0]} count updates alone {adds_ms} ms "
-        f"in window order, {sorted_ms} ms in id order, {quarter_ms} ms by "
-        f"quarter of the ids (index_add_); the kernel {kernel_ms} ms [{tag}]")
-    return dict(rows_ms=rows_ms, adds_ms=adds_ms, sorted_ms=sorted_ms,
-                quarter_ms=quarter_ms)
 
 
 def exact_windows(kt, codes: np.ndarray) -> dict:
@@ -1074,19 +1023,26 @@ def phase_scale(dev, tag: str, count: dict, exact: dict,
         f"{mesh.shape['index']} shards ({st.n_buckets} buckets each, "
         f"max_probe {st.max_probe}) built in {time.perf_counter() - t0} s "
         f"(host)")
-    probe.reset_launches()
-    sync(dev)
-    t0 = time.perf_counter()
-    got = sharded_count(mesh, st, reads)
-    sync(dev)
-    dt = time.perf_counter() - t0
-    check(all(probe.LAUNCHES[n] == mesh.size for n in EXACT_KERNELS),
-          f"sharded_count launches {dict(probe.LAUNCHES)}")
-    check(np.array_equal(got[:keys.size].cpu().numpy(), exact["ids"]),
-          "sharded_count != the single-device exact counts")
+    secs = []
+    for rep in range(SHARDED_REPS):
+        probe.reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        got = sharded_count(mesh, st, reads)
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+        check(all(probe.LAUNCHES[n] == mesh.size for n in EXACT_KERNELS),
+              f"sharded_count launches {dict(probe.LAUNCHES)}")
+        diff = np.nonzero(got[:keys.size].cpu().numpy() != exact["ids"])[0]
+        check(diff.size == 0,
+              f"sharded_count run {rep} != the single-device exact counts "
+              f"at {diff.size} ids (per shard "
+              f"{np.bincount(diff // st.shard_cap).tolist()}, first "
+              f"{diff[:8].tolist()})")
     log(f"[scale] sharded_count (exact, one count_exact_kernel and one "
-        f"exact_apply_kernel per position) equals the single-device exact counts over {N_READS} "
-        f"reads; {dt} s including the shard and read uploads [{tag}]")
+        f"exact_apply_kernel per position) equals the single-device exact "
+        f"counts over {N_READS} reads in each of {SHARDED_REPS} runs; s "
+        f"{secs} including the shard and read uploads [{tag}]")
 
     cfg = dataclasses.replace(IdentifyConfig(), shard_min_kmers=1)
     icount._SHARDED_CACHE.clear()

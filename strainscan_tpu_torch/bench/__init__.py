@@ -4,8 +4,10 @@
   ``kmer_match_reads_per_s_ecoli_scale``.
 * :mod:`.probe_study` -- the counterpart of ``benchmarks/probe_bench3.py``:
   the count step's row gather (``row_gather_kernel``) and scatter.
+* :mod:`.exact_study` -- design studies of the exact count: its kernels
+  beside any other tree's, its add stage's slice sizes, its parts.
 
-Both measure on a CUDA device and raise without one: no number here comes
+All measure on a CUDA device and raise without one: no number here comes
 from the CPU.
 """
 

@@ -37,10 +37,12 @@
 // What the design does about it
 // -----------------------------
 // count_exact_kernel (the probe):
-// * A block takes kRows reads and stages their payload in shared memory
-//   with 16 B loads (stage_span).  For each read it finds where the valid
-//   windows end (vlen, or the last set validity bit), so padding windows are
-//   neither walked nor hashed: they only count, arithmetically.
+// * A block takes up to 64 reads, halved while their payload would take
+//   more than kSmemGoal of shared memory (long reads), and stages the
+//   payload in shared memory with 16 B loads (stage_span).  For each read
+//   it finds where the valid windows end (vlen, or the last set validity
+//   bit), so padding windows are neither walked nor hashed: they only
+//   count, arithmetically.
 // * The lanes of a warp walk 32 runs of kRun consecutive windows with the
 //   shared walker, in step, and append every valid window's (hi, lo, row,
 //   probes left) to the warp's queue in shared memory (a ballot gives each
@@ -51,11 +53,14 @@
 //   row goes back on the queue with the next row, for a later drain, until
 //   its max_probe rows are read.
 // * A hit does not touch counts: its id goes into the block's region of a
-//   hit list (kRows * M ids, so it cannot overflow), coalesced per warp.
+//   hit list (one id per window of its reads, so it cannot overflow),
+//   coalesced per warp.  count_exact_list_shape gives the list's size.
 //   The block adds its trash (windows minus hits) with one atomic and
 //   writes its region's length.
 // exact_apply_kernel (the adds): the grid walks the id space one slice at a
-// time (EXACT_SLICE ids of ops/probe.py, 16 MiB of counts); each block
+// time (the largest power of two of bytes of counts within a third of the
+// L2: 16 MiB on an H100, whose 50 MB L2 also holds the streamed list and
+// the probe's rows); each block
 // prefetches its share of the slice into the L2 with bulk prefetches, then
 // reads its regions of the list with streaming loads, eight ids in flight
 // per thread, and adds one for every id inside the slice with a
@@ -71,7 +76,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;       // reads per block (two per lane of warp 0)
+constexpr int kMaxRows = 64;    // reads per block at most (two per lane of
+                                // warp 0)
+// staged payload a block may take before its reads are halved: two blocks
+// and their queues on one SM
+constexpr int64_t kSmemGoal = 64 * 1024;
 constexpr int kRun = 32;        // windows per work item
 constexpr int kRowVecs = 6;     // 24 int32 = 6 x int4 per table row
 constexpr int kUnroll = 2;      // table rows each lane has in flight
@@ -206,20 +215,21 @@ __device__ __forceinline__ int valid_end(const Reads& b, int64_t row,
 template <int kForm>
 __global__ void __launch_bounds__(kThreads, 2)
 count_exact_kernel(Reads b, const int4* __restrict__ table, uint32_t mask,
-                   int max_probe, int32_t* __restrict__ counts,
-                   int64_t n_keys, int32_t* __restrict__ list,
-                   int32_t* __restrict__ n_list) {
+                   int max_probe, int rows_per_block,
+                   int32_t* __restrict__ counts, int64_t n_keys,
+                   int32_t* __restrict__ list, int32_t* __restrict__ n_list) {
   extern __shared__ __align__(16) uint8_t s_pay[];   // staged payload
   __shared__ Queue s_q[kWarps][32 * (kUnroll + 1)];
-  __shared__ int s_jend[kRows];
-  __shared__ int s_start[kRows + 1];   // first item of each row
+  __shared__ int s_jend[kMaxRows];
+  __shared__ int s_start[kMaxRows + 1];   // first item of each row
   __shared__ int s_hits;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kRows;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
   const int64_t left = b.n_rows - row0;
-  const int rows = left < kRows ? static_cast<int>(left) : kRows;
+  const int rows = left < rows_per_block ? static_cast<int>(left)
+                                         : rows_per_block;
 
   // stage the block's payload: codes, or words (+ validity bits)
   const int64_t n_main = kForm == kCodes ? int64_t{rows} * b.L
@@ -237,6 +247,7 @@ count_exact_kernel(Reads b, const int4* __restrict__ table, uint32_t mask,
   __syncthreads();
 
   // each row's valid windows [0, jend) in runs of kRun: the item table
+  // (rows past the block's have none)
   if (warp == 0) {
     int runs[2], jend[2];
 #pragma unroll
@@ -254,20 +265,20 @@ count_exact_kernel(Reads b, const int4* __restrict__ table, uint32_t mask,
     }
     s_start[2 * lane] = incl - sum;
     s_start[2 * lane + 1] = incl - sum + runs[0];
-    if (lane == 31) s_start[kRows] = incl;
+    if (lane == 31) s_start[kMaxRows] = incl;
   }
   __syncthreads();
 
-  const int items = s_start[kRows];
+  const int items = s_start[kMaxRows];
   Probe pr{s_q[warp], 0,      table, mask, n_keys,
-           list + int64_t{blockIdx.x} * kRows * b.M, &s_hits};
+           list + int64_t{blockIdx.x} * rows_per_block * b.M, &s_hits};
   const bool canonical = b.canonical;
   const int k = b.k;
   for (int base = warp * 32; base < items; base += kThreads) {
     const int it = base + lane;
     int r = 0, j0 = 0, n = 0;
     if (it < items) {
-      int lo = 0, hi = kRows;   // s_start[lo] <= it < s_start[hi]
+      int lo = 0, hi = kMaxRows;   // s_start[lo] <= it < s_start[hi]
       while (hi - lo > 1) {
         const int mid = (lo + hi) >> 1;
         if (s_start[mid] <= it) lo = mid; else hi = mid;
@@ -354,25 +365,32 @@ exact_apply_kernel(const int32_t* __restrict__ list,
   }
 }
 
-// Dynamic shared memory of a block: the staged payload.
-size_t exact_smem(const Reads& b, int form) {
-  if (form == kCodes) return staged_bytes(int64_t{kRows} * b.L);
-  size_t s = staged_bytes(int64_t{kRows} * b.W * 4);
-  if (form == kVbytes) s += staged_bytes(int64_t{kRows} * b.VB);
+// Dynamic shared memory of a block of `rows` reads: the staged payload.
+int64_t exact_smem(const Reads& b, int form, int rows) {
+  if (form == kCodes) return staged_bytes(int64_t{rows} * b.L);
+  int64_t s = staged_bytes(int64_t{rows} * b.W * 4);
+  if (form == kVbytes) s += staged_bytes(int64_t{rows} * b.VB);
   return s;
 }
 
+// Reads per block: kMaxRows, halved while their payload is above the goal.
+int exact_rows(const Reads& b, int form) {
+  int rows = kMaxRows;
+  while (rows > 1 && exact_smem(b, form, rows) > kSmemGoal) rows /= 2;
+  return rows;
+}
+
 template <int kForm>
-cudaError_t launch(const Reads& b, const int4* table, uint32_t mask,
+cudaError_t launch(const Reads& b, int rows, const int4* table, uint32_t mask,
                    int max_probe, int32_t* counts, int64_t n_keys,
                    int32_t* list, int32_t* n_list, cudaStream_t stream) {
   auto kernel = count_exact_kernel<kForm>;
-  const size_t smem = exact_smem(b, kForm);
+  const size_t smem = static_cast<size_t>(exact_smem(b, kForm, rows));
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int64_t grid = (b.n_rows + kRows - 1) / kRows;
+  const int64_t grid = (b.n_rows + rows - 1) / rows;
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
-      b, table, mask, max_probe, counts, n_keys, list, n_list);
+      b, table, mask, max_probe, rows, counts, n_keys, list, n_list);
   return cudaGetLastError();
 }
 
@@ -380,59 +398,81 @@ cudaError_t launch(const Reads& b, const int4* table, uint32_t mask,
 
 extern "C" {
 
-// Reads of one block of count_exact_kernel: the hit list holds
-// ceil(n_rows / rows) regions of rows * M ids.
-int count_exact_rows_per_block() { return kRows; }
+// The hit list of count_exact_launch for a batch (the arguments of its
+// batch): shape[0] regions of shape[1] ids, and shape[0] lengths.
+void count_exact_list_shape(int device, const void* codes, const void* words,
+                            const void* vlen, const void* vbytes,
+                            long long n_rows, int W, int VB, int L, int k,
+                            int canonical, long long* shape) {
+  (void)device;
+  const Reads b = make_reads(codes, words, vlen, vbytes, n_rows, W, VB, L, k,
+                             canonical);
+  const int rows = exact_rows(b, form_of(codes, vlen));
+  shape[0] = n_rows > 0 ? (n_rows + rows - 1) / rows : 0;
+  shape[1] = int64_t{rows} * (b.M > 0 ? b.M : 0);
+}
 
 // Exactly one payload form: raw codes uint8 [n_rows, L], or words uint32
 // [n_rows, W] with vlen uint16 [n_rows] or vbytes uint8 [n_rows, VB].
 // table int32 [n_buckets, 24] (16 B aligned); adds the trash into counts
-// int32 [n_keys + 1]; lists the hit ids in list int32 [regions, rows * M]
-// and each region's length in n_list int32 [regions].
+// int32 [n_keys + 1]; lists the hit ids in list int32 [regions, region]
+// and each region's length in n_list int32 [regions], the shape that
+// count_exact_list_shape gives (a region of another size is refused).
 int count_exact_launch(int device, const void* codes, const void* words,
                        const void* vlen, const void* vbytes, long long n_rows,
                        int W, int VB, int L, int k, int canonical,
                        const void* table, unsigned n_buckets, int max_probe,
                        long long n_keys, void* counts, void* list,
-                       void* n_list, void* stream) {
+                       long long region, void* n_list, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Reads b = make_reads(codes, words, vlen, vbytes, n_rows, W, VB, L, k,
                              canonical);
   if (n_rows <= 0 || b.M <= 0) return static_cast<int>(cudaGetLastError());
+  const int form = form_of(codes, vlen);
+  const int rows = exact_rows(b, form);
+  if (region != int64_t{rows} * b.M)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto* t = static_cast<const int4*>(table);
   auto* c = static_cast<int32_t*>(counts);
   auto* l = static_cast<int32_t*>(list);
   auto* nl = static_cast<int32_t*>(n_list);
   auto s = static_cast<cudaStream_t>(stream);
   const uint32_t mask = n_buckets - 1u;
-  switch (form_of(codes, vlen)) {
+  switch (form) {
     case kCodes:
-      err = launch<kCodes>(b, t, mask, max_probe, c, n_keys, l, nl, s);
+      err = launch<kCodes>(b, rows, t, mask, max_probe, c, n_keys, l, nl, s);
       break;
     case kVlen:
-      err = launch<kVlen>(b, t, mask, max_probe, c, n_keys, l, nl, s);
+      err = launch<kVlen>(b, rows, t, mask, max_probe, c, n_keys, l, nl, s);
       break;
     default:
-      err = launch<kVbytes>(b, t, mask, max_probe, c, n_keys, l, nl, s);
+      err = launch<kVbytes>(b, rows, t, mask, max_probe, c, n_keys, l, nl, s);
   }
   return static_cast<int>(err);
 }
 
 // counts[id] += 1 for the first n_list[r] ids of each region r of list
-// int32 [n_regions, region], slice ids at a time.
+// int32 [n_regions, region], slice ids at a time; slice <= 0 takes the
+// largest power of two of bytes of counts within a third of the L2.
 int exact_apply_launch(int device, const void* list, const void* n_list,
                        long long region, int n_regions, void* counts,
                        long long n_keys, long long slice, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_regions <= 0 || n_keys <= 0) return static_cast<int>(cudaGetLastError());
-  int sms = 0;
+  int sms = 0, l2 = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (slice <= 0) {
+    int64_t bytes = 16;
+    while (bytes * 2 <= l2 / 3) bytes *= 2;
+    slice = bytes / 4;
+  }
   const int64_t n_slices = (n_keys + slice - 1) / slice;
-  if (slice <= 0 || n_slices > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_slices > 65535) return static_cast<int>(cudaErrorInvalidValue);
   // one wave of blocks per slice, so the slices run one after another
   const int per_slice = n_regions < 8 * sms ? n_regions : 8 * sms;
   exact_apply_kernel<<<dim3(per_slice, static_cast<unsigned>(n_slices)),

@@ -148,9 +148,14 @@ __device__ __forceinline__ const uint8_t* stage_span(uint8_t* dst,
   return dst + head;
 }
 
+// Lets `kernel` take `smem` bytes of dynamic shared memory.  Without asking,
+// a block has 48 KiB in all, its static shared memory included.
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (smem + attr.sharedSizeBytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));

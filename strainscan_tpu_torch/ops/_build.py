@@ -103,9 +103,10 @@ def lib() -> ctypes.CDLL:
                                                ll, p]
             so.count_exact_launch.restype = i
             so.count_exact_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i,
-                                              i, p, u, i, ll, p, p, p, p]
-            so.count_exact_rows_per_block.restype = i
-            so.count_exact_rows_per_block.argtypes = []
+                                              i, p, u, i, ll, p, p, ll, p, p]
+            so.count_exact_list_shape.restype = None
+            so.count_exact_list_shape.argtypes = [i, p, p, p, p, ll, i, i, i,
+                                                  i, i, p]
             so.exact_apply_launch.restype = i
             so.exact_apply_launch.argtypes = [i, p, p, ll, i, p, ll, ll, p]
             so.row_gather_launch.restype = i

@@ -17,10 +17,10 @@
   (``csrc/count_exact.cu``): :func:`exact_probe` -> ``count_exact_kernel``
   (each read's valid windows walked with the same rolling key, queued per
   warp, then up to ``max_probe`` reads of the interleaved exact-table row;
-  misses into the trash entry, hit ids into a list per block of reads) and
+  misses into the trash entry, hit ids into a hit list) and
   :func:`exact_apply` -> ``exact_apply_kernel`` (one added to each listed
   id, one L2-sized slice of the id space at a time).  :func:`exact_parity`
-  holds each against its twin.
+  holds each against what it must compute.
 
 Both count wrappers take a read batch in one of three payload forms: int32
 2-bit words with ``vlen`` (valid prefix lengths) or ``vbytes`` (validity
@@ -34,6 +34,7 @@ name; callers reset it with :func:`reset_launches`.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -639,15 +640,6 @@ def count_exact_plain(counts: torch.Tensor, words: torch.Tensor,
     return counts
 
 
-# reads per block of count_exact_kernel (kRows of csrc/count_exact.cu): the
-# hit list holds one region of EXACT_ROWS * M ids per block
-EXACT_ROWS = 64
-# ids per slice of exact_apply_kernel: 16 MiB of counts, which the 50 MB L2
-# of an H100 holds beside the list it streams; chip_smoke.py times 8, 16
-# and 32 MiB
-EXACT_SLICE = 1 << 22
-
-
 def _exact_checks(counts, words, table, length, k, vlen, vbytes):
     """Check count_exact's arguments; return the tensors to route on."""
     valid = _payload(words, vlen, vbytes, length)
@@ -667,35 +659,21 @@ def exact_probe_plain(counts: torch.Tensor, words: torch.Tensor,
                       max_probe: int, canonical: bool = False,
                       vlen: Optional[torch.Tensor] = None,
                       vbytes: Optional[torch.Tensor] = None) -> tuple:
-    """Plain twin of :func:`exact_probe`: the hits of each block of
-    EXACT_ROWS reads in window order."""
-    n_rows = words.shape[0]
-    m = length - k + 1
+    """Plain twin of :func:`exact_probe`: one region that lists every hit
+    in window order."""
     n_keys = counts.shape[0] - 1
-    n_reg = -(-n_rows // EXACT_ROWS)
-    hits = torch.full((n_reg, EXACT_ROWS * m), -1, dtype=torch.int32,
-                      device=words.device)
-    n_hits = torch.zeros(n_reg, dtype=torch.int32, device=words.device)
-    row0 = 0
+    ids = []
     for codes in _chunks(words, vlen, vbytes, length):
-        rows = codes.shape[0]
         hi, lo, ok = kdev.extract_kmers(codes, k)
         if canonical:
             hi, lo = kdev.canonical(hi, lo, k)
-        ids = torch.where(ok, lookup_exact(table, table.shape[0], max_probe,
-                                           hi, lo), -1)
-        ids = torch.where(ids < n_keys, ids, -1).to(torch.int32)
-        pad = -rows % EXACT_ROWS
-        ids = torch.cat([ids, ids.new_full((pad, m), -1)]).view(
-            -1, EXACT_ROWS * m)
-        miss = (ids < 0).to(torch.int8)
-        order = torch.sort(miss, dim=1, stable=True).indices
-        r0 = row0 // EXACT_ROWS
-        hits[r0:r0 + ids.shape[0]] = ids.gather(1, order)
-        n_hits[r0:r0 + ids.shape[0]] = (1 - miss).sum(1, dtype=torch.int32)
-        counts[n_keys] += rows * m - int((1 - miss).sum())
-        row0 += rows
-    return hits, n_hits
+        got = lookup_exact(table, table.shape[0], max_probe, hi, lo)
+        ids.append(got[ok & (got >= 0) & (got < n_keys)].to(torch.int32))
+    hits = torch.cat(ids).view(1, -1) if ids else torch.zeros(
+        (1, 0), dtype=torch.int32, device=words.device)
+    counts[n_keys] += words.shape[0] * (length - k + 1) - hits.shape[1]
+    return hits, torch.tensor([hits.shape[1]], dtype=torch.int32,
+                              device=words.device)
 
 
 def exact_probe(counts: torch.Tensor, words: torch.Tensor,
@@ -704,52 +682,57 @@ def exact_probe(counts: torch.Tensor, words: torch.Tensor,
                 vbytes: Optional[torch.Tensor] = None) -> tuple:
     """The probe stage of :func:`count_exact`: every window that misses (or
     is invalid, or padding) adds one to the trash entry ``counts[n_keys]``,
-    and the ids of the hits are listed per block of EXACT_ROWS reads.
+    and the ids of the hits are listed.
 
-    Returns ``(hits int32 [regions, EXACT_ROWS * M], n_hits int32
-    [regions])``: region r lists the hit ids of reads ``[r * EXACT_ROWS,
-    (r + 1) * EXACT_ROWS)`` in its first ``n_hits[r]`` entries, in an order
-    that may vary between runs (the rest is unset).
+    Returns the hit list ``(hits int32 [regions, region], n_hits int32
+    [regions])``: region r lists ids in its first ``n_hits[r]`` entries (the
+    rest is unset).  The kernel's regions, their size and the order inside
+    them are its own (``csrc/count_exact.cu`` sizes the list); only the
+    multiset of listed ids is the stage's result.
     """
     route = _exact_checks(counts, words, table, length, k, vlen, vbytes)
     kw = dict(length=length, k=k, max_probe=max_probe, canonical=canonical,
               vlen=vlen, vbytes=vbytes)
     if not _route(*route):
         return exact_probe_plain(counts, words, table, **kw)
-    m = length - k + 1
-    n_reg = -(-words.shape[0] // EXACT_ROWS)
-    hits = torch.empty((n_reg, EXACT_ROWS * m), dtype=torch.int32,
-                       device=words.device)
-    n_hits = torch.empty(n_reg, dtype=torch.int32, device=words.device)
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (row vector loads)")
     lib = _build.lib()
-    if lib.count_exact_rows_per_block() != EXACT_ROWS:
-        raise RuntimeError("EXACT_ROWS differs from csrc/count_exact.cu")
+    args = _batch_args(words, vlen, vbytes, length, k, canonical)
+    shape = (ctypes.c_longlong * 2)()
+    lib.count_exact_list_shape(*args, shape)
+    hits = torch.empty((shape[0], shape[1]), dtype=torch.int32,
+                       device=words.device)
+    n_hits = torch.empty(shape[0], dtype=torch.int32, device=words.device)
     _build.check(lib.count_exact_launch(
-        *_batch_args(words, vlen, vbytes, length, k, canonical),
-        table.data_ptr(), table.shape[0], max_probe, counts.shape[0] - 1,
-        counts.data_ptr(), hits.data_ptr(), n_hits.data_ptr(),
-        _stream(words)), "count_exact_kernel launch")
+        *args, table.data_ptr(), table.shape[0], max_probe,
+        counts.shape[0] - 1, counts.data_ptr(), hits.data_ptr(), shape[1],
+        n_hits.data_ptr(), _stream(words)), "count_exact_kernel launch")
     LAUNCHES["count_exact_kernel"] += 1
     return hits, n_hits
+
+
+def listed_ids(hits: torch.Tensor, n_hits: torch.Tensor) -> torch.Tensor:
+    """The listed ids of a hit list, int64."""
+    mask = (torch.arange(hits.shape[1], device=hits.device)[None, :]
+            < n_hits[:, None])
+    return hits[mask].to(torch.int64)
 
 
 def exact_apply_plain(counts: torch.Tensor, hits: torch.Tensor,
                       n_hits: torch.Tensor) -> torch.Tensor:
     """Plain twin of :func:`exact_apply`."""
-    listed = (torch.arange(hits.shape[1], device=hits.device)[None, :]
-              < n_hits[:, None])
-    ids = hits[listed].to(torch.int64)
+    ids = listed_ids(hits, n_hits)
     counts.index_add_(0, ids, torch.ones_like(ids, dtype=counts.dtype))
     return counts
 
 
 def exact_apply(counts: torch.Tensor, hits: torch.Tensor,
-                n_hits: torch.Tensor) -> torch.Tensor:
+                n_hits: torch.Tensor, *, slice_ids: int = 0) -> torch.Tensor:
     """The add stage of :func:`count_exact`: one added to ``counts[id]``
-    for each id that :func:`exact_probe` listed, in place.  Returns
-    ``counts``."""
+    for each id of the hit list of :func:`exact_probe`, in place, one slice
+    of ``slice_ids`` ids of ``counts`` at a time (0: the kernel's choice, a
+    third of the card's L2).  Returns ``counts``."""
     _check(counts, "counts", torch.int32, 1)
     _check(hits, "hits", torch.int32, 2)
     _check(n_hits, "n_hits", torch.int32, 1)
@@ -757,12 +740,10 @@ def exact_apply(counts: torch.Tensor, hits: torch.Tensor,
         raise ValueError("n_hits rows differ from hits rows")
     if not _route(counts, hits, n_hits):
         return exact_apply_plain(counts, hits, n_hits)
-    n_keys = counts.shape[0] - 1
     _build.check(_build.lib().exact_apply_launch(
         counts.device.index, hits.data_ptr(), n_hits.data_ptr(),
-        hits.shape[1], hits.shape[0], counts.data_ptr(), n_keys, EXACT_SLICE,
-        _stream(counts)),
-        "exact_apply_kernel launch")
+        hits.shape[1], hits.shape[0], counts.data_ptr(), counts.shape[0] - 1,
+        slice_ids, _stream(counts)), "exact_apply_kernel launch")
     LAUNCHES["exact_apply_kernel"] += 1
     return counts
 
@@ -794,12 +775,13 @@ def count_exact(counts: torch.Tensor, words: torch.Tensor,
 def exact_parity(words: torch.Tensor, table: torch.Tensor, n_keys: int, *,
                  length: int, k: int, max_probe: int, canonical: bool = False,
                  vlen: Optional[torch.Tensor] = None,
-                 vbytes: Optional[torch.Tensor] = None) -> dict:
-    """Each kernel of :func:`count_exact` against its plain twin on the same
-    inputs: ``{kernel name: max |kernel - plain|}`` over what it writes.
-    The probe's trash entry and region lengths must be equal, and its
-    listed ids as a multiset within each region (the order inside a region
-    is the order of its warps); the add stage runs both on the plain probe's
+                 vbytes: Optional[torch.Tensor] = None,
+                 slice_ids: int = 0) -> dict:
+    """Each kernel of :func:`count_exact` against what it must compute, on
+    the same inputs: ``{kernel name: max |kernel - plain|}``.  The probe's
+    trash entry and the bincount of its listed ids must equal
+    :func:`count_exact_plain`'s counts (the list's layout and order are the
+    kernel's own); the add stage runs beside its plain twin on the probe's
     list."""
     kw = dict(length=length, k=k, max_probe=max_probe, canonical=canonical,
               vlen=vlen, vbytes=vbytes)
@@ -808,23 +790,16 @@ def exact_parity(words: torch.Tensor, table: torch.Tensor, n_keys: int, *,
         d = (a.to(torch.int64) - b.to(torch.int64)).abs()
         return int(d.max()) if d.numel() else 0
 
-    def listed(hits, n_hits):
-        """(region << 32 | id) of every listed id, sorted."""
-        mask = (torch.arange(hits.shape[1], device=hits.device)[None, :]
-                < n_hits[:, None])
-        region = torch.arange(hits.shape[0], device=hits.device)[:, None]
-        keys = (region << 32) | hits.to(torch.int64)
-        return torch.sort(keys[mask]).values
-
-    c1 = torch.zeros(n_keys + 1, dtype=torch.int32, device=words.device)
-    c2 = c1.clone()
-    hits, n_hits = exact_probe(c1, words, table, **kw)
-    phits, pn = exact_probe_plain(c2, words, table, **kw)
-    out = {"count_exact_kernel": max(err(c1, c2), err(n_hits, pn)) if
-           not torch.equal(n_hits, pn) else max(
-               err(c1, c2), err(listed(hits, n_hits), listed(phits, pn)))}
-    a1, a2 = c2.clone(), c2.clone()
-    exact_apply(a1, phits, pn)
-    exact_apply_plain(a2, phits, pn)
+    want = torch.zeros(n_keys + 1, dtype=torch.int32, device=words.device)
+    count_exact_plain(want, words, table, **kw)
+    got = torch.zeros_like(want)
+    hits, n_hits = exact_probe(got, words, table, **kw)
+    ids = listed_ids(hits, n_hits)
+    stray = (ids < 0) | (ids >= n_keys)   # listed, but not an id
+    got[:-1] += torch.bincount(ids[~stray], minlength=n_keys).to(torch.int32)
+    out = {"count_exact_kernel": max(err(got, want), int(stray.sum()))}
+    a1, a2 = torch.zeros_like(want), torch.zeros_like(want)
+    exact_apply(a1, hits, n_hits, slice_ids=slice_ids)
+    exact_apply_plain(a2, hits, n_hits)
     out["exact_apply_kernel"] = err(a1, a2)
     return out

@@ -135,7 +135,7 @@ def assert_reports_identical(out_torch, out_jax, truth=None):
 # ------------------------------------------------ exact-count edge batches
 EXACT_EDGES = ("padded", "mid_read_n", "all_invalid", "vlen_zero",
                "shorter_than_k", "wrap", "load_0_9", "shard", "few_rows",
-               "unaligned")
+               "unaligned", "long_reads")
 
 
 def decode_kmer(key, k: int = 31) -> np.ndarray:
@@ -155,7 +155,10 @@ def exact_edge(case: str):
     other read 20 bp; wrap: a 64-bucket table whose last bucket overflows
     into bucket 0, read by 31 bp reads; load_0_9: misses read every one of
     max_probe > 1 rows; shard: the second shard of a ShardedTable, rebuilt
-    at a lowered load factor; few_rows: 5 reads, fewer than one block."""
+    at a lowered load factor; few_rows: 5 reads, fewer than one block;
+    long_reads: 11 reads of L = 5,000 (the whole genome, every other one
+    reverse-complemented, then random bases and padding), so long that a
+    block of the kernel takes fewer reads."""
     from strainscan_tpu_torch.index.hashtable import BUCKET, mix_np
     from strainscan_tpu_torch.kmer import pack
     from strainscan_tpu_torch.parallel import ShardedTable
@@ -211,6 +214,12 @@ def exact_edge(case: str):
         for i, key in enumerate(chunk):
             codes[i, :k] = decode_kmer(key)
         codes[-3:, :150] = rng.integers(0, 4, size=(3, 150))
+    elif case == "long_reads":
+        codes = np.full((11, 5000), 4, np.uint8)
+        for i in range(codes.shape[0]):
+            codes[i, :genome.size] = (3 - genome)[::-1] if i % 2 else genome
+            codes[i, genome.size:4900] = rng.integers(
+                0, 4, size=4900 - genome.size)
     return table, codes
 
 

@@ -12,7 +12,9 @@ the JSON layout are tested):
   the baseline branch;
 * ``bench.probe_study`` runs both sections at a small size, its row gather
   equal to the NumPy oracle and its compressed scatter equal to the plain
-  scatter (each raises otherwise), with PROBE_STUDY3.json's keys.
+  scatter (each raises otherwise), with PROBE_STUDY3.json's keys;
+* ``bench.exact_study`` runs its three studies at a small size, every
+  window of its batch a hit.
 
 Tolerance: none; counts are integers and must be equal.
 """
@@ -32,6 +34,7 @@ from strainscan_tpu.index.hashtable import KmerTable
 from strainscan_tpu.io import fastx
 from strainscan_tpu.ops.count import CountPipeline as JaxCountPipeline
 from strainscan_tpu_torch.bench import count as bc
+from strainscan_tpu_torch.bench import exact_study as es
 from strainscan_tpu_torch.bench import probe_study as ps
 
 from _torch_sim import one_torch_thread  # noqa: F401
@@ -179,3 +182,19 @@ def test_probe_study_geometry_and_scatters():
     assert torch.equal(plain, comp)
     assert torch.equal(plain, torch.bincount(slots, minlength=501)
                        .to(torch.int32))
+
+
+def test_exact_study_small(monkeypatch):
+    monkeypatch.setattr(es, "cuda_ms", lambda fn, iters=1: _host_ms(fn, 1))
+    monkeypatch.setattr(es, "GENOME_LEN", 3_000)
+    monkeypatch.setattr(es, "BATCH", 64)
+    fx = es.fixture(torch.device("cpu"))
+    assert fx["kt"].n_keys > 5_000
+    designs = es.designs(torch.device("cpu"), fx)
+    assert set(designs) == {f"{name}_ms_L{length}" for length in es.LENGTHS
+                            for name in ("count_exact", "probe_prep")}
+    assert all(len(v) == 2 and min(v) > 0 for v in designs.values())
+    assert set(es.slices(torch.device("cpu"), fx)) == set(es.SLICE_MIB)
+    parts = es.parts(torch.device("cpu"), fx)
+    assert parts["windows"] == parts["hits"] == 64 * (es.READ_LEN - es.K + 1)
+    assert parts["rows_ms"] > 0 and parts["count_exact_ms"] > 0

@@ -100,13 +100,12 @@ def test_probe_prep_kernel_edges_equal_plain(dev, case, k, canonical):
 
 @pytest.mark.parametrize("canonical", [False, True])
 @pytest.mark.parametrize("case", EXACT_EDGES)
-def test_count_exact_kernel_edges_equal_plain(dev, case, canonical,
-                                              monkeypatch):
+def test_count_exact_kernel_edges_equal_plain(dev, case, canonical):
     """The exact count's edge batches (tests/_torch_sim.py::exact_edge), in
     every payload form, against count_exact_plain, also with the add stage
-    over slices of 256 ids, and each of its two kernels against its twin;
-    the "unaligned" batch also as views whose payload spans start and end
-    off 16 B."""
+    over slices of 256 ids, and each of its two kernels against what it
+    must compute (exact_parity); the "unaligned" batch also as views whose
+    payload spans start and end off 16 B, "long_reads" at L = 5,000."""
     table, codes = exact_edge(case)
     tab = kmer_table_to_device(table, dev).table
     length = codes.shape[1]
@@ -133,12 +132,75 @@ def test_count_exact_kernel_edges_equal_plain(dev, case, canonical,
             assert int(want.sum()) == rd.shape[0] * (length - 30)
             # the add stage over many slices of the id space
             sliced = torch.zeros_like(want)
-            monkeypatch.setattr(probe, "EXACT_SLICE", 256)
-            probe.count_exact(sliced, rd, tab, **kw)
-            monkeypatch.undo()
+            probe.exact_apply(sliced, *probe.exact_probe(sliced, rd, tab, **kw),
+                              slice_ids=256)
             assert torch.equal(sliced, want), (name, rd.shape)
-            stage = probe.exact_parity(rd, tab, table.n_keys, **kw)
+            stage = probe.exact_parity(rd, tab, table.n_keys, slice_ids=256,
+                                       **kw)
             assert not any(stage.values()), (name, stage)
+
+
+def test_exact_counts_repeat_at_smoke_scale(dev):
+    """The exact count's hit list is in an order that varies from run to
+    run; its counts may not.  At chip_smoke.py's size (a seeded 14.3 Mb
+    genome's 28.6 M keys; 1.2 M reads of 150 bp, 5 % random, 5 % with a
+    mid-read N) the sharded count (raw codes on a 2 x 2 mesh of this card,
+    two shards at max_probe 2) and the single-device count_exact (raw
+    codes in one launch, and vbytes batches of 65,536 reads padded to
+    L = 256, as the exact stream ships them) are each run REPEAT times and
+    held against count_exact_plain."""
+    from strainscan_tpu_torch.kmer import device as kdev
+
+    repeat = 4
+    rng = np.random.default_rng(0)
+    glen, n_reads, rlen = 14_300_000, 1_200_000, 150
+    genome = rng.integers(0, 4, size=glen).astype(np.uint8)
+    hi, lo, _ = kdev.extract_kmers(torch.from_numpy(genome[None]).to(dev), 31)
+    rhi, rlo = kdev.revcomp(hi, lo, 31)
+    keys = torch.unique(torch.cat([(hi << 32 | lo).ravel(),
+                                   (rhi << 32 | rlo).ravel()]))
+    keys = keys.cpu().numpy().view(np.uint64)
+    starts = rng.integers(0, glen - rlen, size=n_reads)
+    reads = genome[starts[:, None] + np.arange(rlen)[None, :]]
+    flips = rng.random(n_reads) < 0.5
+    reads[flips] = (3 - reads[flips])[:, ::-1]
+    reads[: n_reads // 20] = rng.integers(0, 4, size=(n_reads // 20, rlen))
+    reads[-n_reads // 20:, 70] = 4
+    kt = KmerTable.build(keys, k=31)
+    tab = kmer_table_to_device(kt, dev).table
+    codes = torch.from_numpy(reads).to(dev)
+    kw = dict(k=31, max_probe=kt.max_probe)
+    want = torch.zeros(kt.n_keys + 1, dtype=torch.int32, device=dev)
+    probe.count_exact_plain(want, codes, tab, length=rlen, **kw)
+    assert int(want[:-1].sum()) > 0.8 * n_reads * (rlen - 30)
+    batches = []
+    for i in range(0, n_reads, 65_536):
+        padded = np.full((min(65_536, n_reads - i), 256), 4, np.uint8)
+        padded[:, :rlen] = reads[i:i + 65_536]
+        words, vbytes = pack.bitpack_codes(padded)
+        batches.append((from_u32(words).to(dev),
+                        torch.from_numpy(vbytes).to(dev)))
+    st = ShardedTable.build(keys, k=31, n_shards=2)
+    assert st.max_probe == 2
+    mesh = make_mesh([dev] * 4)
+
+    def check(got, what):
+        diff = torch.nonzero(got[:kt.n_keys] != want[:-1]).ravel().cpu()
+        assert diff.numel() == 0, (
+            f"{what}: {diff.numel()} ids differ (per shard "
+            f"{np.bincount(diff.numpy() // st.shard_cap).tolist()}, first "
+            f"{diff[:8].tolist()})")
+
+    for rep in range(repeat):
+        check(sharded_count(mesh, st, reads), f"sharded_count run {rep}")
+        one = torch.zeros_like(want)
+        probe.count_exact(one, codes, tab, length=rlen, **kw)
+        check(one, f"count_exact (codes) run {rep}")
+        assert int(one[-1]) == int(want[-1])
+        one.zero_()
+        for words, vbytes in batches:
+            probe.count_exact(one, words, tab, length=256, vbytes=vbytes, **kw)
+        check(one, f"count_exact (vbytes, L = 256) run {rep}")
 
 
 def _genome_keys(rng, glen=20_000):

@@ -124,9 +124,10 @@ def test_count_exact_edges_equal_jax(case, canonical):
 @pytest.mark.parametrize("case", EXACT_EDGES)
 def test_exact_probe_then_apply_equals_count_exact(case):
     """The two stages of count_exact on the CPU (their plain twins): the
-    probe lists each block of EXACT_ROWS reads' hit ids in its own region
-    and adds every other window to the trash entry; adding the listed ids
-    gives count_exact's counts."""
+    probe lists the id of every window that hits and adds every other
+    window to the trash entry; adding the listed ids gives count_exact's
+    counts, and exact_parity finds each stage equal to what it must
+    compute."""
     table, codes = exact_edge(case)
     dt = kmer_table_to_device(table, CPU)
     length = codes.shape[1]
@@ -136,23 +137,15 @@ def test_exact_probe_then_apply_equals_count_exact(case):
         probe.count_exact(want, reads, dt.table, **kw)
         got = torch.zeros_like(want)
         hits, n_hits = probe.exact_probe(got, reads, dt.table, **kw)
-        n_reg = -(-codes.shape[0] // probe.EXACT_ROWS)
-        assert hits.shape == (n_reg, probe.EXACT_ROWS * (length - K + 1))
-        assert int(n_hits.sum()) == int(want[:-1].sum()), name
+        ids = probe.listed_ids(hits, n_hits)
+        assert int(n_hits.sum()) == ids.numel() == int(want[:-1].sum()), name
+        assert torch.equal(torch.bincount(ids, minlength=table.n_keys),
+                           want[:-1].long()), name
         assert int(got.sum()) == int(got[-1]) == int(want[-1]), name
-        for r in range(n_reg):   # each region holds its own reads' hits
-            rows = torch.zeros(table.n_keys + 1, dtype=torch.int32)
-            probe.count_exact(rows, reads[r * probe.EXACT_ROWS:
-                                          (r + 1) * probe.EXACT_ROWS],
-                              dt.table, **{**kw, **{
-                                  f: v[r * probe.EXACT_ROWS:
-                                       (r + 1) * probe.EXACT_ROWS]
-                                  for f, v in valid.items()}})
-            ids = hits[r, :int(n_hits[r])].to(torch.int64)
-            assert torch.equal(torch.bincount(
-                ids, minlength=table.n_keys + 1)[:-1], rows[:-1].long())
         probe.exact_apply(got, hits, n_hits)
         assert torch.equal(got, want), name
+        assert probe.exact_parity(reads, dt.table, table.n_keys, **kw) == {
+            "count_exact_kernel": 0, "exact_apply_kernel": 0}, name
 
 
 def test_kmer_table_to_device_cached_per_device():
