@@ -13,9 +13,10 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
 2. Kernel parity on the card, bit-exact against the plain twins:
    probe_prep_kernel on random codes with ~5 % N (B = 65,536, L in
    {150, 256}, k in {31, 21, 16, 15}, canonical on and off); count_fp, and
-   each of its four binned kernels (fp_bin_count_kernel, bin_scan_kernel,
-   fp_bin_scatter_kernel, fp_bin_probe_kernel; ops.probe.fp_bin_parity),
-   on a random table with vlen, vbytes and raw codes payloads;
+   each of its four binned kernels (fp_coarse_count_kernel,
+   fp_coarse_scatter_kernel, fp_fine_split_kernel, fp_bin_probe_kernel;
+   ops.probe.fp_bin_parity), on a random table with vlen, vbytes and raw
+   codes payloads;
    count_exact, and each of its two kernels (count_exact_kernel,
    exact_apply_kernel; ops.probe.exact_parity), on a random KmerTable at
    load 0.9 (so windows probe past their home row) with vbytes, vlen and
@@ -37,12 +38,14 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    L = 256, vbytes) and at L = 150 against its plain twin, and each of its
    kernels alone; count_fp at identify's shape (65,536 reads of 150 bp padded to
    L = 256, vlen) and at L = 150 against its plain twin, each binned kernel
-   held against its twin there and timed alone, and count_fp at 1, 4 and
-   16 blocks per SM of its count and scatter kernels.  Every kernel's
-   bound (bytes each read or written once over 3.35 TB/s, or integer
-   operations over 67 T/s) comes from this run's data: the distinct table
-   rows and count sectors the windows touch.  The launches of each kernel
-   per 1.2 M-read sample are counted.
+   held against its twin there and timed alone (the fine split beside
+   torch.sort of the pairs as int64 keys), and the bin sort of its first
+   three kernels as a whole.  Every kernel's bound (bytes each read or
+   written once over 3.35 TB/s, or integer operations over 67 T/s) comes
+   from this run's data: the distinct table rows and count sectors the
+   windows touch; the bin sort's bound is the payload read once and the
+   pairs and bin starts written once, whatever the design.  The launches of
+   each kernel per 1.2 M-read sample are counted.
 4. End-to-end identify through the CLI entry point on a synthetic DB:
    single-strain, cross-cluster and intra-cluster (Enet) samples with
    ``identify`` and then ``batch-identify`` on the GPU, once more in a
@@ -91,8 +94,9 @@ ecoli tier with one rep of its three passes (bench.count runs five).
 Prints progress with the card's name and power limit beside every number,
 then the card line, a JSON line of the kernels (each with its launches on
 its path and per sample, max_abs_err, ms, plain_ms, bound_ms, bound_by and
-library_ms: null, as no single PyTorch call computes any of them), and as
-the last line
+library_ms: index_add_ for exact_apply_kernel, torch.sort for
+fp_fine_split_kernel, else null, as no single PyTorch call computes the
+others), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero with no result when
 ``torch.cuda.is_available()`` is false or the port is not beside the script.
 Writes its fixtures under .smoke/ and removes them at the end.
@@ -134,8 +138,13 @@ GPU = "cuda"   # the --device of the GPU runs
 GATHER_ROWS, GATHER_W = 1 << 18, (1 << 20) + 1000
 STUDY_CONFIG = "tile2048_nbuf16"
 # the binned count_fp: its kernels in launch order
-FP_KERNELS = ("fp_bin_count_kernel", "bin_scan_kernel",
-              "fp_bin_scatter_kernel", "fp_bin_probe_kernel")
+FP_KERNELS = ("fp_coarse_count_kernel", "fp_coarse_scatter_kernel",
+              "fp_fine_split_kernel", "fp_bin_probe_kernel")
+# ms of the bin sort that the three kernels before fp_bin_probe_kernel
+# replaced (fp_bin_count_kernel + bin_scan_kernel + fp_bin_scatter_kernel),
+# per batch of 65,536 reads of 150 bp (L = 150, vlen) on an H100 80GB HBM3
+# at 700 W (PERF.md, section 6)
+PARENT_FRONT_MS = 0.3885
 # the kernels of count_exact, in launch order
 EXACT_KERNELS = ("count_exact_kernel", "exact_apply_kernel")
 # runs of phase 5's sharded exact count, each held against phase 3's counts
@@ -553,7 +562,8 @@ def time_count_fp(dev, tag: str, fpt, table, reads: np.ndarray) -> dict:
 
     out = {}
     n_buckets, bucket = table.fp.shape
-    for length in (MAXLEN, READ_LEN):
+    # identify's shape last: the kernels below are timed on its batch
+    for length in (READ_LEN, MAXLEN):
         padded = np.full((reads.shape[0], length), 4, np.uint8)
         padded[:, :READ_LEN] = reads
         (payload,) = CountPipeline(fpt, dev).prepare_batch(padded)
@@ -584,77 +594,95 @@ def time_count_fp(dev, tag: str, fpt, table, reads: np.ndarray) -> dict:
         log(f"[count] count_fp at {reads.shape[0]} x {length} (vlen, "
             f"{READ_LEN} bp reads): binned {ms['binned']} ms, plain "
             f"{ms['plain']} ms [{tag}]")
-        out[length] = dict(ms=ms, errs=errs)
+        # the bin sort of count_fp's first three kernels as a whole, against
+        # a bound that holds for any design: the payload read once, the
+        # pairs and the bin starts written once
+        g = probe.fp_bin_geometry(n_buckets, bucket, reads.shape[0],
+                                  length - K + 1, dev)
+        buf = scratch.buffers(dev, g, reads.shape[0] * (length - K + 1))
+        front_kw = dict(length=length, k=K, seed=fpt.seed,
+                        n_buckets=n_buckets, vlen=vlen)
+        probe.fp_bin_front(counts, words, buf, g, **front_kw)
+        n_valid = int(buf.bin_start[-1])
+        payload_b = words.numel() * 4 + vlen.numel() * 2
+        front_b = payload_b + n_valid * 8 + (g.n_bins + 1) * 4 + 8
+        front_bound = bound_ms(front_b, n_valid * HASH_OPS)
+        front_ms = [cuda_ms(lambda: probe.fp_bin_front(
+            counts, words, buf, g, **front_kw), 20) for _ in range(2)]
+        log(f"[count] count_fp's bin sort (fp_coarse_count_kernel, "
+            f"fp_coarse_scatter_kernel, fp_fine_split_kernel) at "
+            f"{reads.shape[0]} x {length}: {front_ms} ms; bound "
+            f"{front_bound[0]} ms by {front_bound[1]} ({front_b} B) [{tag}]")
+        out[length] = dict(ms=ms, errs=errs, front=dict(
+            ms=min(front_ms), bound_ms=front_bound[0], bytes=front_b))
 
-    # each kernel alone at identify's shape, and the bounds from this
-    # batch's data: the valid windows, the distinct rows they probe and the
-    # distinct 32 B count sectors their hits touch
-    length = MAXLEN
-    shift = probe.fp_bin_shift(n_buckets, bucket)
-    n_bins = n_buckets >> shift
-    n_blocks, per = probe.fp_bin_blocks(reads.shape[0], dev)
-    bc, bs, bb, pairs = scratch.buffers(dev, n_bins, n_blocks,
-                                        reads.shape[0] * (length - K + 1))
-    probe.count_fp(counts, words, table.fp, scratch=scratch, **kw)
-    n_valid = int(bs[-1])
-    p = pairs[:n_valid]
+    # each kernel alone at identify's shape (the last batch of the loop),
+    # and the bounds from this batch's data: the valid windows, the distinct
+    # rows they probe and the distinct 32 B count sectors their hits touch
+    p = buf.pairs[:n_valid]
     slots = lookup_fp_from_prep(table.fp, p[:, 1], p[:, 0], bucket)
     hit = slots >= 0
     rows = int(torch.unique(p[:, 1]).numel())
     sectors = int(torch.unique(slots[hit] // 8).numel())
     lanes = (slots[hit] % bucket + 1).sum()
     compares = int(lanes) + bucket * int((~hit).sum())
-    payload_b = words.numel() * 4 + vlen.numel() * 2
     rows_b, cnt_b = rows * bucket * 4, sectors * 32 * 2 + 8
-    bins_b = n_bins * 4
-    skw = dict(kw, n_buckets=n_buckets, shift=shift, rows_per_block=per)
-    stages = {  # wrapper, plain twin, bytes, operations
+    bins_b, coarse_b, pairs_b = g.n_bins * 4, g.n_coarse * 4, n_valid * 8
+    base_b = g.n_blocks * 2 * coarse_b
+    skw = dict(kw, n_buckets=n_buckets, coarse_shift=g.coarse_shift,
+               rows_per_block=g.rows_per_block)
+    split_kw = dict(shift=g.shift, coarse_shift=g.coarse_shift)
+    keys = buf.coarse_pairs[:n_valid].view(torch.int64)   # (bucket, fp)
+    stages = {  # wrapper, plain twin, library call, bytes, operations
+        "fp_coarse_count_kernel": (   # coarse totals zeroed after each
+            lambda: (probe.fp_coarse_count(buf.coarse_count, buf.block_base,
+                                           counts, words, **skw),
+                     buf.coarse_count.zero_()),
+            lambda: (probe.fp_coarse_count_plain(
+                buf.coarse_count, buf.block_base, counts, words, **skw),
+                buf.coarse_count.zero_()),
+            None, payload_b + 2 * coarse_b + base_b + 8, n_valid * HASH_OPS),
+        "fp_coarse_scatter_kernel": (
+            lambda: probe.fp_coarse_scatter(
+                buf.coarse_pairs, buf.coarse_start, buf.coarse_count,
+                buf.block_base, words, stage_cap=g.stage_cap, **skw),
+            lambda: probe.fp_coarse_scatter_plain(
+                buf.coarse_pairs, buf.coarse_start, buf.coarse_count,
+                buf.block_base, words, **skw),
+            None, payload_b + 2 * coarse_b + 4 + base_b + pairs_b,
+            n_valid * HASH_OPS),
+        "fp_fine_split_kernel": (     # reads no coarse total, zeroes them
+            lambda: probe.fp_fine_split(buf.pairs, buf.bin_start,
+                                        buf.coarse_count, buf.coarse_pairs,
+                                        buf.coarse_start, **split_kw),
+            lambda: probe.fp_fine_split_plain(
+                buf.pairs, buf.bin_start, buf.coarse_count, buf.coarse_pairs,
+                buf.coarse_start, shift=g.shift),
+            lambda: torch.sort(keys, dim=0),
+            2 * pairs_b + 2 * coarse_b + 4 + bins_b + 4, 0),
         "fp_bin_probe_kernel": (
-            lambda: probe.fp_bin_probe(counts, pairs, bs, table.fp,
-                                       shift=shift),
-            lambda: probe.fp_bin_probe_plain(counts, pairs, bs, table.fp,
-                                             shift=shift),
-            n_valid * 8 + bins_b + 4 + rows_b + cnt_b, compares),
-        "fp_bin_scatter_kernel": (
-            lambda: probe.fp_bin_scatter(pairs, bs, bb, words, **skw),
-            lambda: probe.fp_bin_scatter_plain(pairs, bs, bb, words, **skw),
-            payload_b + bins_b + 4 + n_blocks * bins_b + n_valid * 8,
-            n_valid * HASH_OPS),
-        "fp_bin_count_kernel": (   # bin totals zeroed again after each
-            lambda: (probe.fp_bin_count(bc, bb, counts, words, **skw),
-                     bc.zero_()),
-            lambda: (probe.fp_bin_count_plain(bc, bb, counts, words, **skw),
-                     bc.zero_()),
-            payload_b + 2 * bins_b + n_blocks * bins_b + 8,
-            n_valid * HASH_OPS),
-        "bin_scan_kernel": (
-            lambda: probe.bin_scan(bc, bs),
-            lambda: probe.bin_scan_plain(bc, bs),
-            3 * bins_b + 4, n_bins)}
+            lambda: probe.fp_bin_probe(counts, buf.pairs, buf.bin_start,
+                                       table.fp, shift=g.shift),
+            lambda: probe.fp_bin_probe_plain(counts, buf.pairs,
+                                             buf.bin_start, table.fp,
+                                             shift=g.shift),
+            None, pairs_b + bins_b + 4 + rows_b + cnt_b, compares)}
     stage_ms = {}
-    for name, (fn, plain, n_bytes, n_ops) in stages.items():
+    for name, (fn, plain, library, n_bytes, n_ops) in stages.items():
+        if name == "fp_coarse_scatter_kernel":   # the totals it scans
+            probe.fp_coarse_count(buf.coarse_count, buf.block_base, counts,
+                                  words, **skw)
         k_ms = [cuda_ms(fn, 20)]
         p_ms = cuda_ms(plain, 3)
         k_ms.append(cuda_ms(fn, 20))
+        lib_ms = None if library is None else cuda_ms(library, 20)
         b_ms, by = bound_ms(n_bytes, n_ops)
-        stage_ms[name] = dict(ms=min(k_ms), plain_ms=p_ms, bound_ms=b_ms,
-                              bound_by=by, bytes=n_bytes)
+        stage_ms[name] = dict(ms=min(k_ms), plain_ms=p_ms, library_ms=lib_ms,
+                              bound_ms=b_ms, bound_by=by, bytes=n_bytes)
         log(f"[count] {name} alone at {reads.shape[0]} x {length}: "
-            f"{k_ms} ms vs plain {p_ms} ms, bound {b_ms} ms by {by} "
-            f"({n_bytes} B) [{tag}]")
-    # the count and scatter kernels' blocks per multiprocessor: with one
-    # wave of blocks the scatter's pair writes span the whole pairs buffer
-    sweep = {}
-    chosen = probe.BLOCKS_PER_SM
-    try:
-        for bps in (1, 4, chosen):
-            probe.BLOCKS_PER_SM = bps
-            sweep[bps] = cuda_ms(lambda: probe.count_fp(
-                counts, words, table.fp, scratch=probe.FpScratch(), **kw), 20)
-    finally:
-        probe.BLOCKS_PER_SM = chosen
-    log(f"[count] count_fp at {reads.shape[0]} x {length} by blocks per SM "
-        f"of its count and scatter kernels: {sweep} ms [{tag}]")
+            f"{k_ms} ms vs plain {p_ms} ms, library {lib_ms} ms"
+            f"{' (torch.sort of the pairs as int64 keys)' if library else ''}"
+            f", bound {b_ms} ms by {by} ({n_bytes} B) [{tag}]")
     whole_b = payload_b + rows_b + cnt_b
     whole_ms, whole_by = bound_ms(whole_b, n_valid * HASH_OPS + compares)
     binned = min(out[length]["ms"]["binned"])
@@ -665,8 +693,6 @@ def time_count_fp(dev, tag: str, fpt, table, reads: np.ndarray) -> dict:
         f"{binned} ms = {whole_ms / binned} of the bound [{tag}]")
     return dict(designs=out, stages=stage_ms, bound_ms=whole_ms,
                 bound_by=whole_by, bytes=whole_b)
-
-
 
 
 def phase_exact(dev, tag: str, ctx: dict) -> dict:
@@ -1346,7 +1372,7 @@ def run(dev, tag: str) -> list:
                                  for d in fp["designs"].values())),
             "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-            "library_ms": None})
+            "library_ms": st["library_ms"]})
     for name in EXACT_KERNELS:   # the two kernels of count_exact
         kernels.append({
             "name": name, "route": "cuda", "source": src + "count_exact.cu",
@@ -1380,6 +1406,13 @@ def run(dev, tag: str) -> list:
     log(f"[count] count_fp per batch of {BATCH} reads, ms by design and L: "
         f"{json.dumps(designs)}; bound at L = {MAXLEN} {fp['bound_ms']} ms "
         f"by {fp['bound_by']} ({fp['bytes']} B) [{tag}]")
+    front = {length: d["front"] for length, d in fp["designs"].items()}
+    log(f"[count] count_fp's bin sort per batch of {BATCH} reads: "
+        f"{front[READ_LEN]['ms']} ms at L = {READ_LEN} against "
+        f"{PARENT_FRONT_MS} ms of the three-kernel front it replaced at that "
+        f"shape, {front[MAXLEN]['ms']} ms at L = {MAXLEN}; bounds "
+        f"{front[READ_LEN]['bound_ms']} and {front[MAXLEN]['bound_ms']} ms "
+        f"[{tag}]")
     return kernels
 
 

@@ -6,6 +6,10 @@
   the count step's row gather (``row_gather_kernel``) and scatter.
 * :mod:`.exact_study` -- design studies of the exact count: its kernels
   beside any other tree's, its add stage's slice sizes, its parts.
+* :mod:`.fp_bin_study` -- design studies of count_fp's bin sort: its
+  kernels beside any other tree's, its fan-out and rows per block.
+* :mod:`.sanitize_counts` -- the count kernels once each at a reduced
+  shape, for compute-sanitizer to watch.
 
 All measure on a CUDA device and raise without one: no number here comes
 from the CPU.

@@ -88,16 +88,16 @@ def lib() -> ctypes.CDLL:
             ll, u = ctypes.c_longlong, ctypes.c_uint32
             so.probe_prep_launch.restype = i
             so.probe_prep_launch.argtypes = [i, p, ll, i, i, i, u, u, p, p, p]
-            so.fp_bin_count_launch.restype = i
-            so.fp_bin_count_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i,
-                                               i, u, u, i, i, i, i, p, p, p,
-                                               ll, p]
-            so.bin_scan_launch.restype = i
-            so.bin_scan_launch.argtypes = [i, p, i, p, p]
-            so.fp_bin_scatter_launch.restype = i
-            so.fp_bin_scatter_launch.argtypes = [i, p, p, p, p, ll, i, i, i,
-                                                 i, i, u, u, i, i, i, i, p, p,
-                                                 p, p]
+            so.fp_coarse_count_launch.restype = i
+            so.fp_coarse_count_launch.argtypes = [i, p, p, p, p, ll, i, i, i,
+                                                  i, i, u, u, i, i, i, i, p,
+                                                  p, p, ll, p]
+            so.fp_coarse_scatter_launch.restype = i
+            so.fp_coarse_scatter_launch.argtypes = [i, p, p, p, p, ll, i, i,
+                                                    i, i, i, u, u, i, i, i, i,
+                                                    i, p, p, p, p, p]
+            so.fp_fine_split_launch.restype = i
+            so.fp_fine_split_launch.argtypes = [i, p, p, i, i, i, p, p, p, p]
             so.fp_bin_probe_launch.restype = i
             so.fp_bin_probe_launch.argtypes = [i, p, p, i, p, i, i, i, i, p,
                                                ll, p]

@@ -4,15 +4,18 @@
   uint8 code rows; port of the Pallas kernel
   ``strainscan_tpu/ops/pallas_probe.py::probe_prep``.
 * :func:`count_fp`: the main-path count of a read batch into slot-space
-  counts, in place, as four kernels (``csrc/count_fp_bins.cu``):
-  :func:`fp_bin_count` -> ``fp_bin_count_kernel`` (walk each read's valid
-  windows with a rolling key, count them per bin of buckets),
-  :func:`bin_scan` -> ``bin_scan_kernel`` (bin starts),
-  :func:`fp_bin_scatter` -> ``fp_bin_scatter_kernel`` (each window's
-  ``(fp, bucket)`` into bin order) and :func:`fp_bin_probe` ->
-  ``fp_bin_probe_kernel`` (each bin's table rows staged in shared memory,
-  its windows resolved there, one added to the hit slot or to the trash
-  slot).  :func:`fp_bin_parity` holds each against its twin.
+  counts, in place, as four kernels (``csrc/count_fp_bins.cu``): a bin sort
+  of the batch's windows by table slice (:func:`fp_bin_front`), then the
+  probe.  :func:`fp_coarse_count` -> ``fp_coarse_count_kernel`` (walk each
+  read's valid windows with a rolling key, count them per coarse bin of
+  buckets, reserve each block's range), :func:`fp_coarse_scatter` ->
+  ``fp_coarse_scatter_kernel`` (walk again, write each window's ``(fp,
+  bucket)`` into coarse-bin order through shared memory),
+  :func:`fp_fine_split` -> ``fp_fine_split_kernel`` (each coarse bin's pairs
+  into fine-bin order, and the fine bins' starts) and :func:`fp_bin_probe`
+  -> ``fp_bin_probe_kernel`` (each fine bin's table rows staged in shared
+  memory, its windows resolved there, one added to the hit slot or to the
+  trash slot).  :func:`fp_bin_parity` holds each against its twin.
 * :func:`count_exact`: the exact probe mode, in place, as two kernels
   (``csrc/count_exact.cu``): :func:`exact_probe` -> ``count_exact_kernel``
   (each read's valid windows walked with the same rolling key, queued per
@@ -35,7 +38,7 @@ name; callers reset it with :func:`reset_launches`.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,8 +49,8 @@ from strainscan_tpu_torch.ops import _build
 
 # every kernel's launches, the measurement path's row_gather_kernel
 # (ops/gather.py) included, so reset_launches covers them all
-LAUNCHES = {"probe_prep_kernel": 0, "fp_bin_count_kernel": 0,
-            "bin_scan_kernel": 0, "fp_bin_scatter_kernel": 0,
+LAUNCHES = {"probe_prep_kernel": 0, "fp_coarse_count_kernel": 0,
+            "fp_coarse_scatter_kernel": 0, "fp_fine_split_kernel": 0,
             "fp_bin_probe_kernel": 0, "count_exact_kernel": 0,
             "exact_apply_kernel": 0, "row_gather_kernel": 0}
 
@@ -202,26 +205,33 @@ def _add_ones(counts: torch.Tensor, slots: torch.Tensor, trash: int) -> None:
 
 
 # -------------------------------------------------------------- count_fp
-# The binned design of count_fp (csrc/count_fp_bins.cu): a bin is a slice of
-# 2**shift consecutive buckets, at most SLICE_BYTES of table, so a block can
-# stage it in shared memory; the count and scatter kernels keep a histogram
-# of at most MAX_BINS bins in shared memory, so a table of more than
-# MAX_BINS * SLICE_BYTES (2 GiB) gets larger bins whose rows are read from
-# global memory.
+# The binned design of count_fp (csrc/count_fp_bins.cu).  A fine bin is a
+# slice of 2**shift consecutive buckets, at most SLICE_BYTES of table, so a
+# probe block can stage it in shared memory; a table of more than MAX_BINS *
+# SLICE_BYTES (2 GiB) gets larger fine bins whose rows are read from global
+# memory.  The windows reach the probe grouped by fine bin through a bin sort
+# of two digits: a coarse bin is a run of consecutive fine bins, at most
+# COARSE_BINS of them in all.
 SLICE_BYTES = 1 << 16
 MAX_BINS = 1 << 15
-RUN = 64              # windows per thread work item (kRun)
-# count and scatter blocks per multiprocessor: at 16 (two waves of 32-row
-# blocks at 65,536 reads) the scatter's concurrent pair writes cover half
-# the pairs buffer, not all of it; chip_smoke.py times 1, 4 and 16
+# coarse bins of the first digit (at most 256, kBinThreads: one per thread
+# of the coarse passes); bench/fp_bin_study.py times 64, 128 and 256
+COARSE_BINS = 256
+# coarse-pass blocks per multiprocessor, from which the rows per block
+# follow; bench/fp_bin_study.py times other rows per block
 BLOCKS_PER_SM = 16
+# pairs (8 B each) a coarse-scatter block stages in shared memory; a block
+# takes fewer rows when their windows would not fit
+STAGE_PAIRS = 8192
+MAX_FINE = 1024       # fine bins per coarse bin (kSplitThreads)
 # rows per chunk of the plain probe (its [rows, bucket] gather: 256 MiB at
 # bucket 64)
 PLAIN_CHUNK_PAIRS = 1 << 20
 
 
 def fp_bin_shift(n_buckets: int, bucket: int) -> int:
-    """log2 of the buckets per bin of a ``[n_buckets, bucket]`` table."""
+    """log2 of the buckets per fine bin of a ``[n_buckets, bucket]``
+    table."""
     rows = max(1, SLICE_BYTES // (4 * bucket))
     shift = min(rows.bit_length() - 1, n_buckets.bit_length() - 1)
     while n_buckets >> shift > MAX_BINS:
@@ -237,43 +247,81 @@ def fp_bin_stride(bucket: int, shift: int, vec: bool) -> int:
     return bucket + 4 if vec else bucket | 1
 
 
-def fp_bin_blocks(n_rows: int, device: torch.device) -> tuple:
-    """``(n_blocks, rows_per_block)`` of the count and scatter kernels."""
-    sms = (torch.cuda.get_device_properties(device).multi_processor_count
-           if device.type == "cuda" else 8)
-    per = max(1, -(-n_rows // (BLOCKS_PER_SM * sms)))
-    return -(-n_rows // per), per
+class FpGeometry(NamedTuple):
+    """How the binned count cuts one table and batch shape."""
+    shift: int            # fine bin = bucket >> shift
+    coarse_shift: int     # coarse bin = bucket >> coarse_shift
+    n_bins: int           # fine bins
+    n_coarse: int         # coarse bins
+    n_blocks: int         # blocks of the two coarse passes
+    rows_per_block: int
+    stage_cap: int        # pairs a coarse-scatter block stages
+
+
+def fp_bin_geometry(n_buckets: int, bucket: int, n_rows: int, windows: int,
+                    device: torch.device, *,
+                    coarse_bins: Optional[int] = None,
+                    rows_per_block: Optional[int] = None) -> FpGeometry:
+    """The geometry of a batch of ``n_rows`` reads of ``windows`` windows
+    each against a ``[n_buckets, bucket]`` table.  By default COARSE_BINS
+    coarse bins (more where a coarse bin would hold more than MAX_FINE fine
+    bins), and a block takes the rows that spread the batch over
+    BLOCKS_PER_SM blocks per multiprocessor, fewer where their windows would
+    overflow STAGE_PAIRS."""
+    coarse_bins = COARSE_BINS if coarse_bins is None else coarse_bins
+    if coarse_bins & (coarse_bins - 1) or not 0 < coarse_bins <= 256:
+        raise ValueError(f"coarse_bins={coarse_bins}: a power of two, "
+                         f"at most 256")
+    shift = fp_bin_shift(n_buckets, bucket)
+    n_bins = n_buckets >> shift
+    n_coarse = max(min(coarse_bins, n_bins), n_bins // MAX_FINE)
+    coarse_shift = shift + (n_bins // n_coarse).bit_length() - 1
+    if rows_per_block is None:
+        sms = (torch.cuda.get_device_properties(device).multi_processor_count
+               if device.type == "cuda" else 8)
+        rows_per_block = max(1, min(-(-n_rows // (BLOCKS_PER_SM * sms)),
+                                    STAGE_PAIRS // windows))
+    return FpGeometry(shift, coarse_shift, n_bins, n_coarse,
+                      -(-n_rows // rows_per_block), rows_per_block,
+                      min(rows_per_block * windows, STAGE_PAIRS))
+
+
+class FpBuffers(NamedTuple):
+    """One batch's view of an :class:`FpScratch` (int32 on one device)."""
+    coarse_count: torch.Tensor   # [n_coarse], zero between batches
+    coarse_start: torch.Tensor   # [n_coarse + 1]
+    block_base: torch.Tensor     # [n_blocks, 2, n_coarse]: start, length
+    coarse_pairs: torch.Tensor   # [n_pairs, 2] (fp, bucket), by coarse bin
+    bin_start: torch.Tensor      # [n_bins + 1]
+    pairs: torch.Tensor          # [n_pairs, 2] (fp, bucket), by fine bin
 
 
 class FpScratch:
     """The binned count's device buffers, per device, grown on demand and
-    reused by every batch: the bin totals (all zero between batches), the
-    bin starts, each block's offsets inside the bins and the binned
-    ``(fp, bucket)`` pairs (8 B per window).  A pipeline holds one; batches
-    on one device must run on one stream."""
+    reused by every batch (:class:`FpBuffers`).  A pipeline holds one;
+    batches on one device must run on one stream."""
 
     def __init__(self):
         self._bufs: dict = {}
 
-    def buffers(self, device: torch.device, n_bins: int, n_blocks: int,
-                n_pairs: int):
-        """``(bin_count [n_bins], bin_start [n_bins + 1], block_base
-        [n_blocks, n_bins], pairs [n_pairs, 2])`` int32 on ``device``."""
-        want = (n_bins, n_bins + 1, n_blocks * n_bins, max(n_pairs, 1))
+    def buffers(self, device: torch.device, g: FpGeometry,
+                n_pairs: int) -> FpBuffers:
+        """The buffers of a batch of ``n_pairs`` windows at geometry ``g``
+        on ``device``."""
+        n_pairs = max(n_pairs, 1)
+        want = (g.n_coarse, g.n_coarse + 1, g.n_blocks * 2 * g.n_coarse,
+                2 * n_pairs, g.n_bins + 1, 2 * n_pairs)
         have = self._bufs.get(str(device))
         if have is None or any(h.shape[0] < w for h, w in zip(have, want)):
             size = want if have is None else [
                 max(h.shape[0], w) for h, w in zip(have, want)]
-            have = (torch.zeros(size[0], dtype=torch.int32, device=device),
-                    torch.empty(size[1], dtype=torch.int32, device=device),
-                    torch.empty(size[2], dtype=torch.int32, device=device),
-                    torch.empty((size[3], 2), dtype=torch.int32,
-                                device=device))
+            have = [torch.zeros(size[0], dtype=torch.int32, device=device)]
+            have += [torch.empty(s, dtype=torch.int32, device=device)
+                     for s in size[1:]]
             self._bufs[str(device)] = have
-        bc, bs, bb, pairs = have
-        return (bc[:n_bins], bs[:n_bins + 1],
-                bb[:n_blocks * n_bins].view(n_blocks, n_bins),
-                pairs[:max(n_pairs, 1)])
+        cc, cs, bb, cp, bs, pairs = (h[:w] for h, w in zip(have, want))
+        return FpBuffers(cc, cs, bb.view(g.n_blocks, 2, g.n_coarse),
+                         cp.view(n_pairs, 2), bs, pairs.view(n_pairs, 2))
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -295,7 +343,8 @@ def _valid_windows(words, vlen, vbytes, length, k, seed, n_buckets,
 def _binned(words, vlen, vbytes, length, k, seed, n_buckets, canonical,
             shift, rows_per_block, n_bins):
     """Every valid window of a batch in row-major order: ``(cell, fp,
-    bucket)`` with cell = block * n_bins + bin, and the non-valid count."""
+    bucket)`` with cell = block * n_bins + (bucket >> shift), and the
+    non-valid count."""
     cells, fps, bks, bad = [], [], [], 0
     for row0, b, fp in _valid_windows(words, vlen, vbytes, length, k, seed,
                                       n_buckets, canonical):
@@ -310,144 +359,215 @@ def _binned(words, vlen, vbytes, length, k, seed, n_buckets, canonical,
     return torch.cat(cells), torch.cat(fps), torch.cat(bks), bad
 
 
-def fp_bin_count_plain(bin_count, block_base, counts, words, *, length, k,
-                       seed, n_buckets, shift, rows_per_block,
-                       canonical=False, vlen=None, vbytes=None):
-    """Plain twin of :func:`fp_bin_count`: blocks reserve their ranges in
+def _check_coarse(block_base, n_rows, n_buckets, coarse_shift,
+                  rows_per_block) -> None:
+    n_blocks, two, n_coarse = block_base.shape
+    if (two != 2 or n_coarse != n_buckets >> coarse_shift or n_coarse > 256
+            or n_coarse << coarse_shift != n_buckets
+            or -(-n_rows // rows_per_block) != n_blocks):
+        raise ValueError(f"block_base {tuple(block_base.shape)} does not fit "
+                         f"{n_rows} rows of {rows_per_block} a block and "
+                         f"{n_buckets} >> {coarse_shift} buckets (at most "
+                         f"256 coarse bins)")
+
+
+def fp_coarse_count_plain(coarse_count, block_base, counts, words, *, length,
+                          k, seed, n_buckets, coarse_shift, rows_per_block,
+                          canonical=False, vlen=None, vbytes=None):
+    """Plain twin of :func:`fp_coarse_count`: blocks reserve their ranges in
     block order (the kernel's order is the atomics' order)."""
-    n_blocks, n_bins = block_base.shape
+    n_blocks, _, n_coarse = block_base.shape
     cells, _, _, bad = _binned(words, vlen, vbytes, length, k, seed,
-                               n_buckets, canonical, shift, rows_per_block,
-                               n_bins)
-    hist = torch.bincount(cells, minlength=n_blocks * n_bins).view(
-        n_blocks, n_bins)
-    base = hist.cumsum(0) - hist + bin_count.to(torch.int64)
-    block_base.copy_(torch.where(hist > 0, base, 0))
-    bin_count += hist.sum(0).to(torch.int32)
+                               n_buckets, canonical, coarse_shift,
+                               rows_per_block, n_coarse)
+    hist = torch.bincount(cells, minlength=n_blocks * n_coarse).view(
+        n_blocks, n_coarse)
+    base = hist.cumsum(0) - hist + coarse_count.to(torch.int64)
+    block_base[:, 0] = torch.where(hist > 0, base, 0)
+    block_base[:, 1] = hist
+    coarse_count += hist.sum(0).to(torch.int32)
     counts[-1] += bad
-    return bin_count
+    return coarse_count
 
 
-def fp_bin_count(bin_count: torch.Tensor, block_base: torch.Tensor,
-                 counts: torch.Tensor, words: torch.Tensor, *, length: int,
-                 k: int, seed: int, n_buckets: int, shift: int,
-                 rows_per_block: int, canonical: bool = False,
-                 vlen: Optional[torch.Tensor] = None,
-                 vbytes: Optional[torch.Tensor] = None) -> torch.Tensor:
+def fp_coarse_count(coarse_count: torch.Tensor, block_base: torch.Tensor,
+                    counts: torch.Tensor, words: torch.Tensor, *, length: int,
+                    k: int, seed: int, n_buckets: int, coarse_shift: int,
+                    rows_per_block: int, canonical: bool = False,
+                    vlen: Optional[torch.Tensor] = None,
+                    vbytes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """First pass of the binned count: add the batch's valid windows per
-    bin (``bucket >> shift``) into ``bin_count`` int32 ``[n_bins]``, write
-    each block's offset inside each bin into ``block_base`` int32
-    ``[n_blocks, n_bins]`` (block i: rows ``[i * rows_per_block, (i + 1) *
-    rows_per_block)``), and add the invalid and padding windows to the
-    trash slot ``counts[-1]``.  The batch is as for :func:`count_fp`."""
+    coarse bin (``bucket >> coarse_shift``) into ``coarse_count`` int32
+    ``[n_coarse]``, write each block's range inside each coarse bin into
+    ``block_base`` int32 ``[n_blocks, 2, n_coarse]`` (its start, its
+    length; block i: rows ``[i * rows_per_block, (i + 1) *
+    rows_per_block)``), and add the invalid and padding windows to the trash
+    slot ``counts[-1]``.  The batch is as for :func:`count_fp`."""
     valid = _payload(words, vlen, vbytes, length)
-    for t, name in ((bin_count, "bin_count"), (counts, "counts")):
+    for t, name in ((coarse_count, "coarse_count"), (counts, "counts")):
         _check(t, name, torch.int32, 1)
-    _check(block_base, "block_base", torch.int32, 2)
+    _check(block_base, "block_base", torch.int32, 3)
     _check_k(k, length)
-    n_blocks, n_bins = block_base.shape
-    if (bin_count.shape[0] != n_bins or n_bins != n_buckets >> shift
-            or -(-words.shape[0] // rows_per_block) != n_blocks):
-        raise ValueError(f"{n_blocks} x {n_bins} blocks x bins do not fit "
-                         f"{words.shape[0]} rows of {rows_per_block} and "
-                         f"{n_buckets} >> {shift} buckets")
+    _check_coarse(block_base, words.shape[0], n_buckets, coarse_shift,
+                  rows_per_block)
+    n_blocks, _, n_coarse = block_base.shape
+    if coarse_count.shape[0] != n_coarse:
+        raise ValueError(f"coarse_count holds {coarse_count.shape[0]} "
+                         f"totals, not {n_coarse}")
     extra = () if valid is None else (valid,)
     kw = dict(length=length, k=k, seed=seed, n_buckets=n_buckets,
-              shift=shift, rows_per_block=rows_per_block,
+              coarse_shift=coarse_shift, rows_per_block=rows_per_block,
               canonical=canonical, vlen=vlen, vbytes=vbytes)
-    if not _route(bin_count, block_base, counts, words, *extra):
-        return fp_bin_count_plain(bin_count, block_base, counts, words, **kw)
-    _build.check(_build.lib().fp_bin_count_launch(
+    if not _route(coarse_count, block_base, counts, words, *extra):
+        return fp_coarse_count_plain(coarse_count, block_base, counts, words,
+                                     **kw)
+    _build.check(_build.lib().fp_coarse_count_launch(
         *_batch_args(words, vlen, vbytes, length, k, canonical), n_buckets,
-        seed & 0xFFFFFFFF, shift, n_bins, n_blocks, rows_per_block,
-        bin_count.data_ptr(), block_base.data_ptr(), counts.data_ptr(),
-        counts.shape[0] - 1, _stream(words)), "fp_bin_count_kernel launch")
-    LAUNCHES["fp_bin_count_kernel"] += 1
-    return bin_count
+        seed & 0xFFFFFFFF, coarse_shift, n_coarse, n_blocks, rows_per_block,
+        coarse_count.data_ptr(), block_base.data_ptr(), counts.data_ptr(),
+        counts.shape[0] - 1, _stream(words)), "fp_coarse_count_kernel launch")
+    LAUNCHES["fp_coarse_count_kernel"] += 1
+    return coarse_count
 
 
-def bin_scan_plain(bin_count: torch.Tensor,
-                   bin_start: torch.Tensor) -> torch.Tensor:
-    """Plain twin of :func:`bin_scan`."""
-    bin_start[0] = 0
-    bin_start[1:] = bin_count.cumsum(0)
-    bin_count.zero_()
-    return bin_start
-
-
-def bin_scan(bin_count: torch.Tensor, bin_start: torch.Tensor) -> torch.Tensor:
-    """``bin_start`` int32 ``[n_bins + 1]`` = the exclusive prefix sums of
-    ``bin_count`` int32 ``[n_bins]`` and their total; zeroes
-    ``bin_count`` for the next batch."""
-    _check(bin_count, "bin_count", torch.int32, 1)
-    _check(bin_start, "bin_start", torch.int32, 1)
-    if bin_start.shape[0] != bin_count.shape[0] + 1:
-        raise ValueError("bin_start must hold one entry more than bin_count")
-    if not _route(bin_count, bin_start):
-        return bin_scan_plain(bin_count, bin_start)
-    _build.check(_build.lib().bin_scan_launch(
-        bin_count.device.index, bin_count.data_ptr(), bin_count.shape[0],
-        bin_start.data_ptr(), _stream(bin_count)), "bin_scan_kernel launch")
-    LAUNCHES["bin_scan_kernel"] += 1
-    return bin_start
-
-
-def fp_bin_scatter_plain(pairs, bin_start, block_base, words, *, length, k,
-                         seed, n_buckets, shift, rows_per_block,
-                         canonical=False, vlen=None, vbytes=None):
-    """Plain twin of :func:`fp_bin_scatter`: inside a block's range of a
-    bin the windows keep row-major order (the kernel's order is the
-    atomics' order)."""
-    n_bins = block_base.shape[1]
+def fp_coarse_scatter_plain(coarse_pairs, coarse_start, coarse_count,
+                            block_base, words, *, length, k, seed, n_buckets,
+                            coarse_shift, rows_per_block, canonical=False,
+                            vlen=None, vbytes=None):
+    """Plain twin of :func:`fp_coarse_scatter`: inside a block's range of a
+    coarse bin the windows keep row-major order (the kernel's order is the
+    order of its shared atomics)."""
+    n_coarse = coarse_count.shape[0]
+    coarse_start[0] = 0
+    coarse_start[1:] = coarse_count.cumsum(0)
     cells, fps, bks, _ = _binned(words, vlen, vbytes, length, k, seed,
-                                 n_buckets, canonical, shift,
-                                 rows_per_block, n_bins)
+                                 n_buckets, canonical, coarse_shift,
+                                 rows_per_block, n_coarse)
     order = torch.argsort(cells, stable=True)
     cells = cells[order]
     first = torch.searchsorted(cells, cells, right=False)
     rank = torch.arange(cells.shape[0], device=cells.device) - first
-    pos = (bin_start[:-1].to(torch.int64)[cells % n_bins]
-           + block_base.reshape(-1).to(torch.int64)[cells] + rank)
-    pairs[pos, 0] = fps[order]
-    pairs[pos, 1] = bks[order]
-    return pairs
+    pos = (coarse_start[:-1].to(torch.int64)[cells % n_coarse]
+           + block_base[:, 0].reshape(-1).to(torch.int64)[cells] + rank)
+    coarse_pairs[pos, 0] = fps[order]
+    coarse_pairs[pos, 1] = bks[order]
+    return coarse_pairs
 
 
-def fp_bin_scatter(pairs: torch.Tensor, bin_start: torch.Tensor,
-                   block_base: torch.Tensor, words: torch.Tensor, *,
-                   length: int, k: int, seed: int, n_buckets: int,
-                   shift: int, rows_per_block: int, canonical: bool = False,
-                   vlen: Optional[torch.Tensor] = None,
-                   vbytes: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Second pass of the binned count: write every valid window's
-    ``(fp, bucket)`` into ``pairs`` int32 ``[>= bin_start[-1], 2]`` in bin
-    order, at ``bin_start[bin] + block_base[block, bin]`` plus its rank
-    among its block's windows of that bin.  The same batch and blocks as
-    :func:`fp_bin_count`."""
+def fp_coarse_scatter(coarse_pairs: torch.Tensor, coarse_start: torch.Tensor,
+                      coarse_count: torch.Tensor, block_base: torch.Tensor,
+                      words: torch.Tensor, *, length: int, k: int, seed: int,
+                      n_buckets: int, coarse_shift: int, rows_per_block: int,
+                      stage_cap: int, canonical: bool = False,
+                      vlen: Optional[torch.Tensor] = None,
+                      vbytes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Second pass of the binned count: ``coarse_start`` int32
+    ``[n_coarse + 1]`` = the exclusive prefix sums of ``coarse_count`` and
+    their total, and every valid window's ``(fp, bucket)`` into
+    ``coarse_pairs`` int32 ``[>= coarse_start[-1], 2]`` grouped by coarse
+    bin, each block's in its range of :func:`fp_coarse_count`'s
+    ``block_base``.  The same batch and blocks as :func:`fp_coarse_count`; a
+    block stages up to ``stage_cap`` pairs in shared memory to write them
+    in runs (one with more writes each pair on its own)."""
     valid = _payload(words, vlen, vbytes, length)
-    _check(pairs, "pairs", torch.int32, 2)
-    _check(bin_start, "bin_start", torch.int32, 1)
-    _check(block_base, "block_base", torch.int32, 2)
+    _check(coarse_pairs, "coarse_pairs", torch.int32, 2)
+    _check(coarse_start, "coarse_start", torch.int32, 1)
+    _check(coarse_count, "coarse_count", torch.int32, 1)
+    _check(block_base, "block_base", torch.int32, 3)
     _check_k(k, length)
-    n_blocks, n_bins = block_base.shape
-    if (bin_start.shape[0] != n_bins + 1 or pairs.shape[1] != 2
-            or n_bins != n_buckets >> shift
-            or -(-words.shape[0] // rows_per_block) != n_blocks):
-        raise ValueError("pairs, bin_start and block_base do not fit the "
-                         "batch")
+    _check_coarse(block_base, words.shape[0], n_buckets, coarse_shift,
+                  rows_per_block)
+    n_blocks, _, n_coarse = block_base.shape
+    if (coarse_count.shape[0] != n_coarse
+            or coarse_start.shape[0] != n_coarse + 1
+            or coarse_pairs.shape[1] != 2 or stage_cap < 0):
+        raise ValueError("coarse_pairs, coarse_start and coarse_count do not "
+                         "fit block_base")
     extra = () if valid is None else (valid,)
     kw = dict(length=length, k=k, seed=seed, n_buckets=n_buckets,
-              shift=shift, rows_per_block=rows_per_block,
+              coarse_shift=coarse_shift, rows_per_block=rows_per_block,
               canonical=canonical, vlen=vlen, vbytes=vbytes)
-    if not _route(pairs, bin_start, block_base, words, *extra):
-        return fp_bin_scatter_plain(pairs, bin_start, block_base, words, **kw)
-    _build.check(_build.lib().fp_bin_scatter_launch(
+    if not _route(coarse_pairs, coarse_start, coarse_count, block_base,
+                  words, *extra):
+        return fp_coarse_scatter_plain(coarse_pairs, coarse_start,
+                                       coarse_count, block_base, words, **kw)
+    _build.check(_build.lib().fp_coarse_scatter_launch(
         *_batch_args(words, vlen, vbytes, length, k, canonical), n_buckets,
-        seed & 0xFFFFFFFF, shift, n_bins, n_blocks, rows_per_block,
-        bin_start.data_ptr(), block_base.data_ptr(), pairs.data_ptr(),
-        _stream(words)), "fp_bin_scatter_kernel launch")
-    LAUNCHES["fp_bin_scatter_kernel"] += 1
+        seed & 0xFFFFFFFF, coarse_shift, n_coarse, n_blocks, rows_per_block,
+        stage_cap, coarse_count.data_ptr(), block_base.data_ptr(),
+        coarse_start.data_ptr(), coarse_pairs.data_ptr(), _stream(words)),
+        "fp_coarse_scatter_kernel launch")
+    LAUNCHES["fp_coarse_scatter_kernel"] += 1
+    return coarse_pairs
+
+
+def fp_fine_split_plain(pairs, bin_start, coarse_count, coarse_pairs,
+                        coarse_start, *, shift):
+    """Plain twin of :func:`fp_fine_split`: a stable sort by fine bin."""
+    n = int(coarse_start[-1])
+    p = coarse_pairs[:n]
+    fine = (p[:, 1] >> shift).to(torch.int64)
+    pairs[:n] = p[torch.argsort(fine, stable=True)]
+    bin_start[0] = 0
+    bin_start[1:] = torch.bincount(fine, minlength=bin_start.shape[0] - 1
+                                   ).cumsum(0)
+    coarse_count.zero_()
     return pairs
+
+
+def fp_fine_split(pairs: torch.Tensor, bin_start: torch.Tensor,
+                  coarse_count: torch.Tensor, coarse_pairs: torch.Tensor,
+                  coarse_start: torch.Tensor, *, shift: int,
+                  coarse_shift: int) -> torch.Tensor:
+    """Last pass of the bin sort: the pairs of :func:`fp_coarse_scatter`
+    (grouped by coarse bin, ``coarse_start`` int32 ``[n_coarse + 1]``) into
+    ``pairs`` grouped by fine bin (``bucket >> shift``), with ``bin_start``
+    int32 ``[n_bins + 1]`` = the fine bins' starts and the total; zeroes
+    ``coarse_count`` int32 ``[n_coarse]`` for the next batch.  One kernel
+    block per coarse bin."""
+    for t, name in ((pairs, "pairs"), (coarse_pairs, "coarse_pairs")):
+        _check(t, name, torch.int32, 2)
+    for t, name in ((bin_start, "bin_start"), (coarse_count, "coarse_count"),
+                    (coarse_start, "coarse_start")):
+        _check(t, name, torch.int32, 1)
+    n_coarse, fine_log2 = coarse_count.shape[0], coarse_shift - shift
+    if (coarse_start.shape[0] != n_coarse + 1
+            or not 0 <= fine_log2 <= MAX_FINE.bit_length() - 1
+            or bin_start.shape[0] != (n_coarse << fine_log2) + 1
+            or pairs.shape != coarse_pairs.shape or pairs.shape[1] != 2):
+        raise ValueError(f"{n_coarse} coarse bins of 2**{fine_log2} fine "
+                         f"bins do not fit bin_start "
+                         f"{tuple(bin_start.shape)} or the pairs")
+    if not _route(pairs, bin_start, coarse_count, coarse_pairs, coarse_start):
+        return fp_fine_split_plain(pairs, bin_start, coarse_count,
+                                   coarse_pairs, coarse_start, shift=shift)
+    _build.check(_build.lib().fp_fine_split_launch(
+        pairs.device.index, coarse_pairs.data_ptr(), coarse_start.data_ptr(),
+        n_coarse, shift, fine_log2, coarse_count.data_ptr(),
+        bin_start.data_ptr(), pairs.data_ptr(), _stream(pairs)),
+        "fp_fine_split_kernel launch")
+    LAUNCHES["fp_fine_split_kernel"] += 1
+    return pairs
+
+
+def fp_bin_front(counts: torch.Tensor, words: torch.Tensor, buf: FpBuffers,
+                 g: FpGeometry, *, length: int, k: int, seed: int,
+                 n_buckets: int, canonical: bool = False,
+                 vlen: Optional[torch.Tensor] = None,
+                 vbytes: Optional[torch.Tensor] = None) -> FpBuffers:
+    """The bin sort of :func:`count_fp`: its three passes into ``buf``
+    (``buf.pairs`` grouped by fine bin, ``buf.bin_start``), the invalid and
+    padding windows into the trash slot ``counts[-1]``."""
+    kw = dict(length=length, k=k, seed=seed, n_buckets=n_buckets,
+              coarse_shift=g.coarse_shift, rows_per_block=g.rows_per_block,
+              canonical=canonical, vlen=vlen, vbytes=vbytes)
+    fp_coarse_count(buf.coarse_count, buf.block_base, counts, words, **kw)
+    fp_coarse_scatter(buf.coarse_pairs, buf.coarse_start, buf.coarse_count,
+                      buf.block_base, words, stage_cap=g.stage_cap, **kw)
+    fp_fine_split(buf.pairs, buf.bin_start, buf.coarse_count,
+                  buf.coarse_pairs, buf.coarse_start, shift=g.shift,
+                  coarse_shift=g.coarse_shift)
+    return buf
 
 
 def fp_bin_probe_plain(counts: torch.Tensor, pairs: torch.Tensor,
@@ -530,8 +650,9 @@ def count_fp(counts: torch.Tensor, words: torch.Tensor,
       scratch: the buffers of the binned kernels (a caller that counts many
         batches keeps one); a fresh one when None.
 
-    On a CUDA device: :func:`fp_bin_count`, :func:`bin_scan`,
-    :func:`fp_bin_scatter`, :func:`fp_bin_probe`.  Returns ``counts``.
+    On a CUDA device: :func:`fp_bin_front` (:func:`fp_coarse_count`,
+    :func:`fp_coarse_scatter`, :func:`fp_fine_split`), then
+    :func:`fp_bin_probe`.  Returns ``counts``.
     """
     valid = _payload(words, vlen, vbytes, length)
     _check(fp_table, "fp_table", torch.int32, 2)
@@ -551,18 +672,54 @@ def count_fp(counts: torch.Tensor, words: torch.Tensor,
     n_rows = words.shape[0]
     if n_rows == 0:
         return counts
-    shift = fp_bin_shift(n_buckets, bucket)
-    n_blocks, per = fp_bin_blocks(n_rows, words.device)
-    bin_count, bin_start, block_base, pairs = (scratch or FpScratch()).buffers(
-        words.device, n_buckets >> shift, n_blocks,
-        n_rows * (length - k + 1))
-    kw = dict(length=length, k=k, seed=seed, n_buckets=n_buckets,
-              shift=shift, rows_per_block=per, canonical=canonical,
-              vlen=vlen, vbytes=vbytes)
-    fp_bin_count(bin_count, block_base, counts, words, **kw)
-    bin_scan(bin_count, bin_start)
-    fp_bin_scatter(pairs, bin_start, block_base, words, **kw)
-    return fp_bin_probe(counts, pairs, bin_start, fp_table, shift=shift)
+    g = fp_bin_geometry(n_buckets, bucket, n_rows, length - k + 1,
+                        words.device)
+    buf = (scratch or FpScratch()).buffers(words.device, g,
+                                           n_rows * (length - k + 1))
+    fp_bin_front(counts, words, buf, g, length=length, k=k, seed=seed,
+                 n_buckets=n_buckets, canonical=canonical, vlen=vlen,
+                 vbytes=vbytes)
+    return fp_bin_probe(counts, buf.pairs, buf.bin_start, fp_table,
+                        shift=g.shift)
+
+
+def _int_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+    return int(d.max()) if d.numel() else 0
+
+
+# the error fp_bin_parity reports for pairs outside their bin's range, or
+# block ranges that do not tile a coarse bin
+MISPLACED = 1 << 62
+
+
+def _tiles(block_base: torch.Tensor) -> bool:
+    """Whether the blocks' ranges (start, length) tile each coarse bin from
+    0 without a gap or an overlap, in whatever order the blocks took
+    them."""
+    start = block_base[:, 0].T.to(torch.int64)
+    length = block_base[:, 1].T.to(torch.int64)
+    key, idx = torch.where(length > 0, start, 1 << 40).sort(1)
+    length = length.gather(1, idx)
+    return bool(((key == length.cumsum(1) - length) | (length == 0)).all())
+
+
+def _pairs_err(got: torch.Tensor, want: torch.Tensor, starts: torch.Tensor,
+               shift: int) -> int:
+    """0 when every pair of ``got`` lies in the range of its bin
+    (``bucket >> shift``) and the two hold the same multiset of pairs (so
+    each bin holds the same multiset); else the largest difference of the
+    sorted pairs, or MISPLACED."""
+    pos = torch.arange(got.shape[0], device=got.device)
+    bins = torch.searchsorted(starts.to(torch.int64), pos, right=True) - 1
+    if not bool(((got[:, 1] >> shift).to(torch.int64) == bins).all()):
+        return MISPLACED
+
+    def keys(p):
+        p = p.to(torch.int64)
+        return torch.sort((p[:, 1] << 32) | (p[:, 0] & 0xFFFFFFFF)).values
+
+    return _int_err(keys(got), keys(want))
 
 
 def fp_bin_parity(words: torch.Tensor, fp_table: torch.Tensor, *,
@@ -570,55 +727,53 @@ def fp_bin_parity(words: torch.Tensor, fp_table: torch.Tensor, *,
                   vlen: Optional[torch.Tensor] = None,
                   vbytes: Optional[torch.Tensor] = None) -> dict:
     """Each binned kernel against its plain twin on the same inputs:
-    ``{kernel name: max |kernel - plain|}`` over what it writes.  The bin
-    totals, bin starts, trash slot and probe counts must be equal; the
-    pairs, as a multiset within each bin (the kernels' order inside a bin is
-    the order of their atomics, and a wrong block offset would overwrite
-    pairs); the probe runs both on the plain scatter's pairs."""
+    ``{kernel name: max |kernel - plain|}`` over what it writes.  The
+    coarse totals, the blocks' range lengths, the coarse and fine bin
+    starts, the trash slot and the probe counts must be equal, and the
+    blocks' ranges must tile each coarse bin (their order is the order of
+    the kernel's atomics); the pairs, as a multiset within each coarse or
+    fine bin (the order inside a bin is the kernels' own).  Each pass runs
+    on its predecessor's kernel output, except that the fine split and the
+    probe both take the plain twins' input."""
     dev = words.device
     n_buckets, bucket = fp_table.shape
-    shift = fp_bin_shift(n_buckets, bucket)
-    n_bins = n_buckets >> shift
-    n_blocks, per = fp_bin_blocks(words.shape[0], dev)
+    g = fp_bin_geometry(n_buckets, bucket, words.shape[0], length - k + 1,
+                        dev)
     kw = dict(length=length, k=k, seed=seed, n_buckets=n_buckets,
-              shift=shift, rows_per_block=per, canonical=canonical,
-              vlen=vlen, vbytes=vbytes)
+              coarse_shift=g.coarse_shift, rows_per_block=g.rows_per_block,
+              canonical=canonical, vlen=vlen, vbytes=vbytes)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=dev)
 
-    def err(a, b):
-        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
-        return int(d.max()) if d.numel() else 0
-
-    bc, bb, c = zeros(n_bins), zeros(n_blocks, n_bins), zeros(
-        n_buckets * bucket + 1)
-    pbc, pbb, pc = bc.clone(), bb.clone(), c.clone()
-    fp_bin_count(bc, bb, c, words, **kw)
-    fp_bin_count_plain(pbc, pbb, pc, words, **kw)
-    out = {"fp_bin_count_kernel": max(err(bc, pbc), err(c, pc))}
-    bs, pbs = zeros(n_bins + 1), zeros(n_bins + 1)
-    bin_scan(bc, bs)
-    bin_scan_plain(pbc, pbs)
-    out["bin_scan_kernel"] = max(err(bs, pbs), err(bc, pbc))
-    n = int(pbs[-1])
+    cc, bb, c = (zeros(g.n_coarse), zeros(g.n_blocks, 2, g.n_coarse),
+                 zeros(n_buckets * bucket + 1))
+    pcc, pbb, pc = cc.clone(), bb.clone(), c.clone()
+    fp_coarse_count(cc, bb, c, words, **kw)
+    fp_coarse_count_plain(pcc, pbb, pc, words, **kw)
+    out = {"fp_coarse_count_kernel": max(
+        _int_err(cc, pcc), _int_err(c, pc), _int_err(bb[:, 1], pbb[:, 1]),
+        0 if _tiles(bb) else MISPLACED)}
+    n = int(pcc.sum())
+    cs, pcs = zeros(g.n_coarse + 1), zeros(g.n_coarse + 1)
+    cp, pcp = zeros(max(n, 1), 2), zeros(max(n, 1), 2)
+    fp_coarse_scatter(cp, cs, cc, bb, words, stage_cap=g.stage_cap, **kw)
+    fp_coarse_scatter_plain(pcp, pcs, pcc, pbb, words, **kw)
+    out["fp_coarse_scatter_kernel"] = max(
+        _int_err(cs, pcs), _pairs_err(cp[:n], pcp[:n], pcs, g.coarse_shift))
+    bs, pbs = zeros(g.n_bins + 1), zeros(g.n_bins + 1)
     pairs, ppairs = zeros(max(n, 1), 2), zeros(max(n, 1), 2)
-    fp_bin_scatter(pairs, bs, bb, words, **kw)
-    fp_bin_scatter_plain(ppairs, pbs, pbb, words, **kw)
-
-    def keys(p):
-        p = p[:n].to(torch.int64)
-        return torch.sort((p[:, 1] << 32) | (p[:, 0] & 0xFFFFFFFF)).values
-
-    pos = torch.arange(n, device=dev)
-    in_bin = (pairs[:n, 1] >> shift).to(torch.int64) == (
-        torch.searchsorted(pbs.to(torch.int64), pos, right=True) - 1)
-    out["fp_bin_scatter_kernel"] = (err(keys(pairs), keys(ppairs))
-                                    if bool(in_bin.all()) else 1 << 62)
+    kcc = pcc.clone()
+    fp_fine_split(pairs, bs, kcc, pcp, pcs, shift=g.shift,
+                  coarse_shift=g.coarse_shift)
+    fp_fine_split_plain(ppairs, pbs, pcc, pcp, pcs, shift=g.shift)
+    out["fp_fine_split_kernel"] = max(
+        _int_err(bs, pbs), _int_err(kcc, pcc),
+        _pairs_err(pairs[:n], ppairs[:n], pbs, g.shift))
     c1, c2 = c.clone(), c.clone()
-    fp_bin_probe(c1, ppairs, pbs, fp_table, shift=shift)
-    fp_bin_probe_plain(c2, ppairs, pbs, fp_table, shift=shift)
-    out["fp_bin_probe_kernel"] = err(c1, c2)
+    fp_bin_probe(c1, ppairs, pbs, fp_table, shift=g.shift)
+    fp_bin_probe_plain(c2, ppairs, pbs, fp_table, shift=g.shift)
+    out["fp_bin_probe_kernel"] = _int_err(c1, c2)
     return out
 
 
@@ -786,10 +941,6 @@ def exact_parity(words: torch.Tensor, table: torch.Tensor, n_keys: int, *,
     kw = dict(length=length, k=k, max_probe=max_probe, canonical=canonical,
               vlen=vlen, vbytes=vbytes)
 
-    def err(a, b):
-        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
-        return int(d.max()) if d.numel() else 0
-
     want = torch.zeros(n_keys + 1, dtype=torch.int32, device=words.device)
     count_exact_plain(want, words, table, **kw)
     got = torch.zeros_like(want)
@@ -797,9 +948,9 @@ def exact_parity(words: torch.Tensor, table: torch.Tensor, n_keys: int, *,
     ids = listed_ids(hits, n_hits)
     stray = (ids < 0) | (ids >= n_keys)   # listed, but not an id
     got[:-1] += torch.bincount(ids[~stray], minlength=n_keys).to(torch.int32)
-    out = {"count_exact_kernel": max(err(got, want), int(stray.sum()))}
+    out = {"count_exact_kernel": max(_int_err(got, want), int(stray.sum()))}
     a1, a2 = torch.zeros_like(want), torch.zeros_like(want)
     exact_apply(a1, hits, n_hits, slice_ids=slice_ids)
     exact_apply_plain(a2, hits, n_hits)
-    out["exact_apply_kernel"] = err(a1, a2)
+    out["exact_apply_kernel"] = _int_err(a1, a2)
     return out

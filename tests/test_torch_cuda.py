@@ -228,8 +228,8 @@ def _batch(rng, genome, form, rows=3001, length=160):
     return codes, from_u32(words), {form: torch.from_numpy(valid)}
 
 
-FP_KERNELS = ("fp_bin_count_kernel", "bin_scan_kernel",
-              "fp_bin_scatter_kernel", "fp_bin_probe_kernel")
+FP_KERNELS = ("fp_coarse_count_kernel", "fp_coarse_scatter_kernel",
+              "fp_fine_split_kernel", "fp_bin_probe_kernel")
 
 
 def _host_oracle(fpt, codes, canonical=False):
@@ -247,8 +247,9 @@ def _host_oracle(fpt, codes, canonical=False):
 
 @pytest.mark.parametrize("form", ["vlen", "vbytes", "codes"])
 def test_count_fp_kernel_equals_plain(dev, form):
-    """The binned count_fp: its four kernels once each, the counts equal to
-    count_fp_plain and to the host oracle, trash slot included."""
+    """The binned count_fp: its four kernels once each (the three passes of
+    the bin sort and the probe), the counts equal to count_fp_plain and to
+    the host oracle, trash slot included."""
     rng = np.random.default_rng(1)
     genome, keys = _genome_keys(rng)
     fpt = FpTable.build(keys, k=31)
@@ -273,17 +274,20 @@ def test_count_fp_kernel_equals_plain(dev, form):
 
 FP_CASES = ["small_table", "bucket16", "bucket6", "canonical",
             "all_invalid", "vlen_zero", "mid_read_n", "codes", "unstaged",
-            "bucket32", "one_row"]
+            "bucket32", "one_row", "coarse8", "unstaged_blocks",
+            "rows_per_block"]
 
 
 @pytest.mark.parametrize("case", FP_CASES)
 def test_count_fp_binned_kernels_equal_plain(dev, case, monkeypatch):
     """Each binned kernel against its plain twin (fp_bin_parity) and
     count_fp against count_fp_plain and the host oracle, on the edge cases
-    of the design: a table smaller than one bin, bucket widths that are
-    and are not multiples of four, canonical windows, all-invalid batches,
-    rows of valid length 0, mid-read Ns, raw codes, bins too large for
-    shared memory, a one-row batch."""
+    of the design: a table smaller than one bin (and one coarse bin),
+    bucket widths that are and are not multiples of four, canonical
+    windows, all-invalid batches, rows of valid length 0, mid-read Ns, raw
+    codes, bins too large for shared memory, a one-row batch, 8 coarse bins
+    of many fine bins, blocks with more windows than their staging buffer
+    (each pair written on its own), one row per block."""
     rng = np.random.default_rng(FP_CASES.index(case))
     genome, keys = _genome_keys(rng, glen=1500 if case == "small_table"
                                 else 20_000)
@@ -294,6 +298,13 @@ def test_count_fp_binned_kernels_equal_plain(dev, case, monkeypatch):
     if case == "unstaged":          # 2 bins of 64 buckets x 256 B: 16 KiB
         monkeypatch.setattr(probe, "MAX_BINS", 2)
         monkeypatch.setattr(probe, "SLICE_BYTES", 1 << 12)
+    if case == "coarse8":           # 128 fine bins of 4 KiB, 8 coarse bins
+        monkeypatch.setattr(probe, "COARSE_BINS", 8)
+        monkeypatch.setattr(probe, "SLICE_BYTES", 1 << 12)
+    if case == "unstaged_blocks":   # a block stages 64 of its ~121 pairs
+        monkeypatch.setattr(probe, "STAGE_PAIRS", 64)
+    if case == "rows_per_block":    # one row per block: 3,001 blocks
+        monkeypatch.setattr(probe, "STAGE_PAIRS", 130)
     form = {"mid_read_n": "vbytes", "codes": "codes"}.get(case, "vlen")
     codes, reads, valid = _batch(rng, genome, form)
     if case in ("all_invalid", "vlen_zero", "one_row"):
@@ -311,6 +322,14 @@ def test_count_fp_binned_kernels_equal_plain(dev, case, monkeypatch):
     if case == "unstaged":
         assert probe.fp_bin_stride(bucket, probe.fp_bin_shift(
             fpt.n_buckets, bucket), True) == 0
+    g = probe.fp_bin_geometry(fpt.n_buckets, bucket, reads.shape[0], 130,
+                              dev)
+    if case == "coarse8":
+        assert (g.n_coarse, g.n_bins) == (8, 128)
+    if case == "unstaged_blocks":
+        assert (g.rows_per_block, g.stage_cap) == (1, 64)
+    if case == "rows_per_block":
+        assert (g.rows_per_block, g.stage_cap) == (1, 130)
     kw = dict(length=160, k=31, seed=fpt.seed, canonical=canonical, **valid)
     errs = probe.fp_bin_parity(reads, table.fp, **kw)
     assert errs == dict.fromkeys(FP_KERNELS, 0)

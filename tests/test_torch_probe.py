@@ -129,9 +129,10 @@ def test_cpu_tensor_routes_to_plain_twin():
     want = probe.probe_prep_plain(codes, k=21, n_buckets=1 << 8, seed=1)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert probe.LAUNCHES == dict.fromkeys((
-        "probe_prep_kernel", "fp_bin_count_kernel", "bin_scan_kernel",
-        "fp_bin_scatter_kernel", "fp_bin_probe_kernel", "count_exact_kernel",
-        "exact_apply_kernel", "row_gather_kernel"), 0)
+        "probe_prep_kernel", "fp_coarse_count_kernel",
+        "fp_coarse_scatter_kernel", "fp_fine_split_kernel",
+        "fp_bin_probe_kernel", "count_exact_kernel", "exact_apply_kernel",
+        "row_gather_kernel"), 0)
     with pytest.raises(ValueError):
         probe.probe_prep(codes.to(torch.int32), k=21, n_buckets=1 << 8,
                          seed=1)
