@@ -77,17 +77,29 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    one torch.profiler trace per phase, the count's with
    fp_bin_probe_kernel's device events, and reports byte-identical to an
    untraced run.
+7. Identify at E. coli scale: bench.scale_fixture builds its fixture
+   from nothing (823 synthetic families, 1,647 genomes of 100 kb, a DB of
+   1,181 clusters over 28,588,812 keys; no reference-layout export) and its
+   samples single, crossmix, intramix and deep (1.2 M reads of 100 bp);
+   bench.scale_parity identifies the four cold and then warm on the GPU,
+   and the first three on the CPU.  Every report must be byte-identical
+   between them, the truth strains found, intramix must reach the Enet
+   vote, the DB's table must be uploaded once, and every GPU sample must
+   launch each of count_fp's kernels.
 
 Each path's launch counters are set to 0 just before it and read just
 after: the main path (phase 4's GPU identify) for count_fp's kernels, the
 exact-mode count of phase 3 for count_exact's two kernels, the study's gather
-section of phase 6 for row_gather_kernel.  probe_prep_kernel is
+section of phase 6 for row_gather_kernel, and each sample of phase 7
+for count_fp's kernels again (summed as launches_ecoli).  probe_prep_kernel is
 the standalone parity seam of the Pallas probe_prep, on no path (its hash
 runs fused inside the count kernels), so its main-path count is 0 and the
 kernels line also gives its phase-2 launches.
 
 Reduced for time: phase 4's DB is 40 families x up to 3 variants x 100 kb
-(80 genomes), not the 823 clusters of the reference's E. coli DB; phases 3
+(80 genomes); phase 7 runs identify at the E. coli DB's size, without
+batch-identify, the fresh process and the deep sample on the CPU (the full
+set is ``python -m strainscan_tpu_torch.bench.scale_parity``); phases 3
 and 5 keep the count at the full 28.6 M-key table; phase 6 runs bench.count's
 ecoli tier with one rep of its three passes (bench.count runs five).
 
@@ -149,6 +161,8 @@ PARENT_FRONT_MS = 0.3885
 EXACT_KERNELS = ("count_exact_kernel", "exact_apply_kernel")
 # runs of phase 5's sharded exact count, each held against phase 3's counts
 SHARDED_REPS = 3
+# phase 7: the E. coli-scale samples also identified on the CPU
+ECOLI_CPU = ("single", "crossmix", "intramix")
 # integer operations per hashed window: four fmix32 of 8 operations, the
 # seed and constant XORs, and the rolling forward and reverse keys
 HASH_OPS = 44
@@ -157,13 +171,14 @@ HASH_OPS = 44
 
 def block_jax_package() -> None:
     """Refuse every import of jax and of the JAX package (strainscan_tpu,
-    not the port) in this process, so the run proves the port stands
-    alone."""
+    not the port, and its scripts in benchmarks/) in this process, so the
+    run proves the port stands alone."""
     import importlib.abc
 
     def blocked(name: str) -> bool:
-        return (name in ("jax", "jaxlib", "strainscan_tpu")
-                or name.startswith(("jax.", "jaxlib.", "strainscan_tpu.")))
+        return (name in ("jax", "jaxlib", "strainscan_tpu", "benchmarks")
+                or name.startswith(("jax.", "jaxlib.", "strainscan_tpu.",
+                                    "benchmarks.")))
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -1283,6 +1298,66 @@ def phase_trace(tag: str, ident: dict) -> None:
         f"untraced run; s {secs} [{tag}]")
 
 
+def phase_ecoli(tag: str) -> dict:
+    """Identify at E. coli scale: bench.scale_fixture's fixture built from
+    nothing, its four samples cold and warm on the GPU and its three
+    shared samples on the CPU, every report byte-identical between them;
+    returns the launches of count_fp's kernels on this path."""
+    from strainscan_tpu_torch.bench import scale_fixture, scale_parity
+
+    root = os.path.join(FIXTURE, "ecoli")
+    t0 = time.perf_counter()
+    meta = scale_fixture.build_fixture(root, threads=os.cpu_count() or 8,
+                                       export=False)
+    log(f"[ecoli] fixture in {time.perf_counter() - t0} s: "
+        f"{len(meta['strains'])} genomes ({meta['genomes_s']} s), DB of "
+        f"{meta['n_clusters']} clusters and {meta['n_keys']} keys "
+        f"({meta['build_s']} s, digest {meta['db_digest']}), samples "
+        f"{ {n: v['reads'] for n, v in meta['samples'].items()} } (host)")
+    db = os.path.join(root, "DB")
+    fqs = scale_parity.sample_paths(root, meta)
+    out = os.path.join(root, "out")
+    recs = {f"{GPU}/{p}": scale_parity.identify_each(
+        fqs, db, os.path.join(out, GPU, p), GPU) for p in ("cold", "warm")}
+    launches = {name: sum(r["launches"].get(name, 0) for rs in recs.values()
+                          for r in rs.values()) for name in FP_KERNELS}
+    for what, rs in recs.items():
+        for name, rec in rs.items():
+            bad = scale_parity.faults(f"{what} {name}", rec, GPU)
+            check(not bad, "; ".join(bad))
+            check(all(rec["launches"].get(k) for k in FP_KERNELS),
+                  f"{what} {name}: launches {rec['launches']}")
+    uploads = sum(r["uploads_keys"].count(meta["n_keys"])
+                  for rs in recs.values() for r in rs.values())
+    check(uploads == 1, f"the E. coli DB's table uploaded {uploads} times")
+    shared = {n: fqs[n] for n in ECOLI_CPU}
+    recs["cpu/cold"] = scale_parity.identify_each(
+        shared, db, os.path.join(out, "cpu", "cold"), "cpu")
+    groups = {what: scale_parity.report_groups(os.path.join(out, what))
+              for what in recs}
+    for name in fqs:
+        want = groups[f"{GPU}/cold"][name]
+        check(groups[f"{GPU}/warm"][name] == want,
+              f"{name}: warm GPU report differs from the cold one")
+        if name in shared:
+            check(groups["cpu/cold"][name] == want,
+                  f"{name}: GPU report differs from the CPU run")
+        found = scale_parity.strains_in(want["final_report.txt"])
+        check(set(meta["samples"][name]["truth"]) <= found,
+              f"{name}: truth {meta['samples'][name]['truth']} not in "
+              f"{sorted(found)}")
+    check(any(f.endswith("StrainVote.report")
+              for f in groups[f"{GPU}/cold"]["intramix"]),
+          "intramix did not reach the L2 vote")
+    secs = {what: {n: r["s"] for n, r in rs.items()}
+            for what, rs in recs.items()}
+    log(f"[ecoli] reports byte-identical: GPU cold = GPU warm for "
+        f"{len(fqs)} samples, = CPU for {len(shared)}; truth found; "
+        f"intramix reached the Enet vote. s/sample {secs} [{tag}]")
+    log(f"[ecoli] count_fp kernel launches on this path {launches}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1334,6 +1409,7 @@ def run(dev, tag: str) -> list:
     timed("scale", phase_scale, dev, tag, count, exact, ident)
     measure = timed("measure", phase_measure, dev, tag)
     timed("trace", phase_trace, tag, ident)
+    ecoli = timed("ecoli", phase_ecoli, tag)
     shutil.rmtree(FIXTURE, ignore_errors=True)
     log(f"[time] wall s per phase {secs}, {sum(secs.values())} in all")
 
@@ -1367,6 +1443,7 @@ def run(dev, tag: str) -> list:
             "part_of": "count_fp",
             "launches": launches[name],
             "launches_per_sample": per_sample[name],
+            "launches_ecoli": ecoli[name],
             "max_abs_err": max(parity[name][0],
                                *(d["errs"][name]
                                  for d in fp["designs"].values())),

@@ -15,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import resource
 import time
 
 log = logging.getLogger("strainscan_tpu_torch")
@@ -28,7 +29,8 @@ PHASE_TIMES: dict = {}
 _tracing = False
 
 
-def _rss_gb() -> float:
+def rss_gb() -> float:
+    """This process's resident set in GiB (NaN where /proc has none)."""
     try:
         with open("/proc/self/status") as f:
             for line in f:
@@ -37,6 +39,12 @@ def _rss_gb() -> float:
     except OSError:
         pass
     return float("nan")
+
+
+def peak_rss_gb() -> float:
+    """This process's peak resident set in GiB (``getrusage``; Linux
+    counts ``ru_maxrss`` in KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
 def trace_path(trace_dir: str, name: str) -> str:
@@ -76,7 +84,7 @@ def phase(name: str):
         yield
     dt = time.perf_counter() - t0
     PHASE_TIMES[name] = dt
-    log.info("phase %-28s %8.2fs  rss %.2f GB", name, dt, _rss_gb())
+    log.info("phase %-28s %8.2fs  rss %.2f GB", name, dt, rss_gb())
 
 
 @contextlib.contextmanager

@@ -2,10 +2,12 @@
 asks for the card or raises.
 
 A subprocess installs a meta-path finder that refuses every import of
-``jax`` and of ``strainscan_tpu`` (not ``strainscan_tpu_torch``), then
-imports every module of the port and runs a CPU ``build`` -> ``identify``
-through its CLI: the host with the card has no JAX, so any transitive
-import of either would break the port there.
+``jax``, of ``strainscan_tpu`` (not ``strainscan_tpu_torch``) and of the
+JAX package's scripts (``benchmarks``), then imports every module of the
+port, runs a CPU ``build`` -> ``identify`` through its CLI and builds a
+small E. coli-style fixture with ``bench.scale_fixture``: the host with the
+card has no JAX, so any transitive import of either would break the port
+there.
 """
 
 import ast
@@ -29,8 +31,9 @@ BLOCK_JAX = textwrap.dedent("""
     import sys
 
     def _blocked(name):
-        return (name in ("jax", "strainscan_tpu")
-                or name.startswith(("jax.", "jaxlib", "strainscan_tpu.")))
+        return (name in ("jax", "strainscan_tpu", "benchmarks")
+                or name.startswith(("jax.", "jaxlib", "strainscan_tpu.",
+                                    "benchmarks.")))
 
     class _NoJax:
         def find_spec(self, name, path=None, target=None):
@@ -124,6 +127,36 @@ def test_cli_build_identify_under_the_block(tmp_path):
     assert [r.split("\t")[1] for r in rows] == ["GB_1"]
 
 
+def test_scale_bench_stands_alone(tmp_path):
+    """``bench.scale_fixture`` and ``bench.scale_parity`` keep their own
+    copies of the JAX package's generators: with ``benchmarks`` blocked too
+    they import and build a 2-family fixture (genomes, DB, reference
+    export, four samples)."""
+    root = str(tmp_path / "fixture")
+    code = textwrap.dedent(f"""
+        import importlib
+        from strainscan_tpu_torch.bench import scale_fixture, scale_parity
+        meta = scale_fixture.build_fixture({root!r}, families=2,
+                                           deep_scale=0.001)
+        assert list(meta["samples"]) == ["single", "crossmix", "intramix",
+                                         "deep"], meta["samples"]
+        assert len(meta["strains"]) == 4 and meta["n_keys"] > 0
+        assert scale_parity.load_meta({root!r}) == meta
+        assert not any(_blocked(m) for m in sys.modules), "blocked import"
+        for name in ("benchmarks.scale", "benchmarks"):
+            try:
+                importlib.import_module(name)
+            except ImportError:
+                print("BLOCKED", name)
+    """)
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "BLOCKED benchmarks.scale" in proc.stdout
+    assert "BLOCKED benchmarks" in proc.stdout.splitlines()
+    assert os.path.exists(os.path.join(root, "REFDB", "Tree_database",
+                                       "kmer.fa"))
+
+
 def test_cli_cuda_without_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: --device cuda is valid here")
@@ -158,6 +191,6 @@ def test_chip_smoke_imports_only_the_port():
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
     bad = [n for n in names if n.split(".")[0] in
-           ("jax", "jaxlib", "strainscan_tpu")]
+           ("jax", "jaxlib", "strainscan_tpu", "benchmarks")]
     assert not bad, f"chip_smoke.py imports {bad}"
     assert any(n.startswith("strainscan_tpu_torch.") for n in names)
