@@ -15,8 +15,12 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    {150, 256}, k in {31, 21, 16, 15}, canonical on and off); count_fp, and
    each of its four binned kernels (fp_coarse_count_kernel,
    fp_coarse_scatter_kernel, fp_fine_split_kernel, fp_bin_probe_kernel;
-   ops.probe.fp_bin_parity), on a random table with vlen, vbytes and raw
-   codes payloads;
+   ops.probe.fp_bin_parity), on a random table of 128 bins with vlen,
+   vbytes and raw codes payloads, on one of 16 bins and at the L2 union
+   count's shape (a 7,400-key table of 256 x 64, one bin, and 65,536 reads
+   of 100 bp padded to L = 256; count_fp launches no fine split for a
+   table whose coarse bins are each one fine bin, and spreads a bin's
+   windows over the card's blocks);
    count_exact, and each of its two kernels (count_exact_kernel,
    exact_apply_kernel; ops.probe.exact_parity), on a random KmerTable at
    load 0.9 (so windows probe past their home row) with vbytes, vlen and
@@ -40,7 +44,10 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    L = 256, vlen) and at L = 150 against its plain twin, each binned kernel
    held against its twin there and timed alone (the fine split beside
    torch.sort of the pairs as int64 keys), and the bin sort of its first
-   three kernels as a whole.  Every kernel's bound (bytes each read or
+   three kernels as a whole.  At the L2 union count's shape: count_fp
+   against its plain twin (no fine split launched), the coarse passes and
+   the probe alone, and the fine split called alone beside torch.sort.
+   Every kernel's bound (bytes each read or
    written once over 3.35 TB/s, or integer operations over 67 T/s) comes
    from this run's data: the distinct table rows and count sectors the
    windows touch; the bin sort's bound is the payload read once and the
@@ -52,7 +59,8 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    fresh ``python -m strainscan_tpu_torch.cli`` process, and all again with
    ``--device cpu``.  Every report must be byte-identical between GPU and
    CPU, the truth strains must be found, and the kernels' launch counters
-   (reset just before the GPU runs) must show the runs went through them.
+   (reset just before the GPU runs) must show the runs went through them;
+   the L2 union counts' share of them must hold no fine split.
 5. Scale-out: a mesh over every visible GPU, or on a card that is alone a
    2 x 2 mesh whose four positions are all that card.  The sharded exact
    count (sharded_count) and the sharded fp pipeline (count_sample with
@@ -88,10 +96,14 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    launch each of count_fp's kernels.
 
 Each path's launch counters are set to 0 just before it and read just
-after: the main path (phase 4's GPU identify) for count_fp's kernels, the
+after: the main path, each sample of phase 7's E. coli-scale identify
+(summed), for count_fp's kernels (its 28.6 M-key table has 4,096 fine bins,
+so the fine split runs in its count; the L2 union counts' tables, one bin
+each, launch none: at_union); phase 4's GPU identify for them again
+(launches_synth: its DB's table has at most 256 fine bins, each its own
+coarse bin, so no fine split runs there); the
 exact-mode count of phase 3 for count_exact's two kernels, the study's gather
-section of phase 6 for row_gather_kernel, and each sample of phase 7
-for count_fp's kernels again (summed as launches_ecoli).  probe_prep_kernel is
+section of phase 6 for row_gather_kernel.  probe_prep_kernel is
 the standalone parity seam of the Pallas probe_prep, on no path (its hash
 runs fused inside the count kernels), so its main-path count is 0 and the
 kernels line also gives its phase-2 launches.
@@ -108,7 +120,9 @@ then the card line, a JSON line of the kernels (each with its launches on
 its path and per sample, max_abs_err, ms, plain_ms, bound_ms, bound_by and
 library_ms: index_add_ for exact_apply_kernel, torch.sort for
 fp_fine_split_kernel, else null, as no single PyTorch call computes the
-others), and as the last line
+others; fp_bin_probe_kernel and fp_fine_split_kernel also at_union: ms,
+bound_ms and their launches in phase 4's L2 union counts), and as the last
+line
 ``{"ok": true, "device": {...}}``.  Exits non-zero with no result when
 ``torch.cuda.is_available()`` is false or the port is not beside the script.
 Writes its fixtures under .smoke/ and removes them at the end.
@@ -337,23 +351,37 @@ def phase_parity(dev, tag: str) -> dict:
     genome = rng.integers(0, 4, size=400_000).astype(np.uint8)
     keys = genome_keys(genome, dev)
     fpt = fp_table(keys)
-    table = fp_table_to_device(fpt, dev)
     reads = np.full((BATCH, 156), 4, np.uint8)
     reads[:, :READ_LEN] = sample_reads(rng, genome, BATCH)
     reads[: BATCH // 8] = rng.integers(0, 4, size=(BATCH // 8, 156))
     dirty = reads.copy()
     dirty[::9, 60] = 4
-    for name, codes, packed in (("vlen", reads, True),
-                                ("vbytes", dirty, True),
-                                ("codes", dirty, False)):
-        (payload,) = CountPipeline(fpt, dev, packed_transfer=packed) \
+    # 128 bins (each its own coarse bin) in every payload form; 16 bins
+    # (100,000 of the keys: 4,096 x 64); the L2 union count's shape (one
+    # bin of 256 x 64, 65,536 reads of 100 bp at L = MAXLEN)
+    fp_cases = [(name, fpt, codes, packed) for name, codes, packed in (
+        ("vlen", reads, True), ("vbytes", dirty, True),
+        ("codes", dirty, False))]
+    fp_cases.append(("vlen, 16 bins", fp_table(np.sort(rng.choice(
+        keys, 100_000, replace=False))), reads, True))
+    union = union_fixture(dev)
+    fp_cases.append(("vlen, union shape", union["fpt"], union["codes"], True))
+    n_split = 0
+    for name, tab, codes, packed in fp_cases:
+        form = name.split(",")[0]
+        table = fp_table_to_device(tab, dev)
+        (payload,) = CountPipeline(tab, dev, packed_transfer=packed) \
             .prepare_batch(codes)
-        check(payload[0] == name, f"payload form {payload[0]} != {name}")
+        check(payload[0] == form, f"payload form {payload[0]} != {form}")
         words = payload[1].to(dev)
-        valid = {} if payload[2] is None else {name: payload[2].to(dev)}
-        c1 = torch.zeros(fpt.n_slots + 1, dtype=torch.int32, device=dev)
+        valid = {} if payload[2] is None else {form: payload[2].to(dev)}
+        c1 = torch.zeros(tab.n_slots + 1, dtype=torch.int32, device=dev)
         c2 = c1.clone()
-        kw = dict(length=156, k=K, seed=fpt.seed, **valid)
+        length = codes.shape[1]
+        kw = dict(length=length, k=K, seed=tab.seed, **valid)
+        g = probe.fp_bin_geometry(tab.n_buckets, tab.bucket, codes.shape[0],
+                                  length - K + 1, dev)
+        n_split += 1 + probe.fp_split_needed(g)   # the parity's, count_fp's
         probe.count_fp(c1, words, table.fp, **kw)
         probe.count_fp_plain(c2, words, table.fp, **kw)
         stage = probe.fp_bin_parity(words, table.fp, **kw)
@@ -364,7 +392,9 @@ def phase_parity(dev, tag: str) -> dict:
             errs[kname] = max(errs[kname], e, err(c1, c2))
         log(f"[parity] count_fp ({', '.join(FP_KERNELS)}) {name}: each "
             f"kernel and the whole bit-exact, {int(c1[:-1].sum())} hits, "
-            f"{int(c1[-1])} trash (table {fpt.n_keys} keys) [{tag}]")
+            f"{int(c1[-1])} trash (table {tab.n_keys} keys, "
+            f"{tab.n_buckets} x {tab.bucket} in {g.n_bins} bins and "
+            f"{g.n_coarse} coarse bins; {codes.shape[0]} x {length}) [{tag}]")
 
     kt = KmerTable.build(keys, k=K, load_factor=0.9)
     ktab = kmer_table_to_device(kt, dev)
@@ -401,7 +431,9 @@ def phase_parity(dev, tag: str) -> dict:
     want = dict.fromkeys(launches, 0)
     want.update({"probe_prep_kernel": n_probe,
                  **dict.fromkeys(EXACT_KERNELS, n_exact),
-                 **dict.fromkeys(FP_KERNELS, 6)})   # count_fp + the parity
+                 # count_fp + the parity; the split where count_fp needs it
+                 **dict.fromkeys(FP_KERNELS, 2 * len(fp_cases)),
+                 "fp_fine_split_kernel": n_split})
     check(launches == want, f"parity launches {launches}")
     log(f"[parity] kernel launches {launches}")
     return {name: (errs[name], launches[name]) for name in errs}
@@ -433,6 +465,14 @@ def exact_payloads(clean: np.ndarray, dirty: np.ndarray, dev) -> list:
             ("vlen", from_u32(cwords).to(dev),
              {"vlen": torch.from_numpy(vlen).to(dev)}),
             ("codes", torch.from_numpy(dirty).to(dev), {})]
+
+
+def union_fixture(dev) -> dict:
+    """The L2 union count's shape (bench.fp_bin_study's union study): a
+    7,400-key table of 256 x 64 and 65,536 reads of 100 bp at L = 256."""
+    from strainscan_tpu_torch.bench.fp_bin_study import union_fixture as fx
+
+    return fx(dev)
 
 
 def fp_table(keys: np.ndarray):
@@ -560,7 +600,7 @@ def phase_count(dev, tag: str) -> dict:
         prep[length] = dict(ms=ms, bound=bound)
     fp = time_count_fp(dev, tag, fpt, table, reads[:BATCH])
     return dict(keys=keys, fpt=fpt, fq=fq, reads=reads, ids=ids, prep=prep,
-                fp=fp,
+                fp=fp, union=time_union(dev, tag),
                 launches_per_sample=launches_per_sample)
 
 
@@ -708,6 +748,111 @@ def time_count_fp(dev, tag: str, fpt, table, reads: np.ndarray) -> dict:
         f"{binned} ms = {whole_ms / binned} of the bound [{tag}]")
     return dict(designs=out, stages=stage_ms, bound_ms=whole_ms,
                 bound_by=whole_by, bytes=whole_b)
+
+
+def time_union(dev, tag: str) -> dict:
+    """count_fp at the L2 union count's shape (one bin of 256 x 64,
+    65,536 reads of 100 bp at L = MAXLEN, vlen) against its plain twin, in
+    turns, with the launches of one call (no fine split); the coarse passes
+    and the probe alone, each with its bound from this batch's data; the
+    fine split called alone (count_fp does not launch it here) beside
+    torch.sort of the pairs as int64 keys.  Returns the numbers."""
+    import torch
+
+    from strainscan_tpu_torch.bench.fp_bin_study import probe_bytes
+    from strainscan_tpu_torch.index.hashtable import lookup_fp_from_prep
+    from strainscan_tpu_torch.ops import probe
+
+    fx = union_fixture(dev)
+    fpt, table, words, vlen = fx["fpt"], fx["table"], fx["words"], fx["vlen"]
+    n_buckets, bucket = table.shape
+    rows, length = fx["codes"].shape
+    kw = dict(length=length, k=K, seed=fpt.seed, vlen=vlen)
+    g = probe.fp_bin_geometry(n_buckets, bucket, rows, length - K + 1, dev)
+    check(g.n_bins == g.n_coarse == 1 and not probe.fp_split_needed(g),
+          f"the union shape's geometry {g}")
+    counts = torch.zeros(fpt.n_slots + 1, dtype=torch.int32, device=dev)
+    scratch = probe.FpScratch()
+    probe.reset_launches()
+    probe.count_fp(counts, words, table, scratch=scratch, **kw)
+    launches = {n: probe.LAUNCHES[n] for n in FP_KERNELS}
+    want = probe.count_fp_plain(torch.zeros_like(counts), words, table, **kw)
+    sync(dev)
+    check(torch.equal(counts, want), "count_fp != plain at the union shape")
+    check(launches == {**dict.fromkeys(FP_KERNELS, 1),
+                       "fp_fine_split_kernel": 0},
+          f"count_fp launches at the union shape {launches}")
+    fns = {"plain": (lambda: probe.count_fp_plain(counts, words, table, **kw),
+                     3),
+           "binned": (lambda: probe.count_fp(counts, words, table,
+                                             scratch=scratch, **kw), 20)}
+    ms = {name: [] for name in fns}
+    for name in ("plain", "binned", "binned", "plain"):
+        counts.zero_()
+        fn, iters = fns[name]
+        ms[name].append(cuda_ms(fn, iters))
+    buf = scratch.buffers(dev, g, rows * (length - K + 1))
+    front = probe.fp_bin_front(counts, words, buf, g, n_buckets=n_buckets,
+                               **kw)
+    n_valid = int(front.bin_start[-1])
+    pairs = front.pairs[:n_valid]
+    slots = lookup_fp_from_prep(table, pairs[:, 1], pairs[:, 0], bucket)
+    hit = slots >= 0
+    compares = int((slots[hit] % bucket + 1).sum()) + bucket * int(
+        (~hit).sum())
+    payload_b = words.numel() * 4 + vlen.numel() * 2
+    coarse_b, pairs_b = g.n_coarse * 4, n_valid * 8
+    base_b = g.n_blocks * 2 * coarse_b
+    probe_b = probe_bytes(table, pairs, g.n_bins)
+    skw = dict(kw, n_buckets=n_buckets, coarse_shift=g.coarse_shift,
+               rows_per_block=g.rows_per_block)
+    keys = buf.coarse_pairs[:n_valid].view(torch.int64)   # (bucket, fp)
+    stages = {  # call, bytes, operations
+        "fp_coarse_count_kernel": (
+            lambda: (probe.fp_coarse_count(buf.coarse_count, buf.block_base,
+                                           counts, words, **skw),
+                     buf.coarse_count.zero_()),
+            payload_b + 2 * coarse_b + base_b + 8, n_valid * HASH_OPS),
+        "fp_coarse_scatter_kernel": (
+            lambda: probe.fp_coarse_scatter(
+                buf.coarse_pairs, buf.coarse_start, buf.coarse_count,
+                buf.block_base, words, stage_cap=g.stage_cap, **skw),
+            payload_b + 2 * coarse_b + 4 + base_b + pairs_b,
+            n_valid * HASH_OPS),
+        "fp_fine_split_kernel": (     # reads no coarse total, zeroes them
+            lambda: probe.fp_fine_split(
+                buf.pairs, buf.bin_start, buf.coarse_count, buf.coarse_pairs,
+                buf.coarse_start, shift=g.shift, coarse_shift=g.coarse_shift),
+            2 * pairs_b + 2 * coarse_b + 4 + (g.n_bins + 1) * 4, 0),
+        "fp_bin_probe_kernel": (
+            lambda: probe.fp_bin_probe(counts, front.pairs, front.bin_start,
+                                       table, shift=g.shift),
+            probe_b, compares),
+        "torch_sort": (lambda: torch.sort(keys, dim=0), 2 * pairs_b, 0)}
+    out = dict(count_fp=dict(ms=min(ms["binned"]), plain_ms=min(ms["plain"])),
+               launches=launches, n_valid=n_valid)
+    for name, (fn, n_bytes, n_ops) in stages.items():
+        if name == "fp_coarse_scatter_kernel":   # the totals it scans
+            probe.fp_coarse_count(buf.coarse_count, buf.block_base, counts,
+                                  words, **skw)
+        counts.zero_()
+        k_ms = [cuda_ms(fn, 20) for _ in range(2)]
+        b_ms, by = bound_ms(n_bytes, n_ops)
+        out[name] = dict(ms=min(k_ms), bound_ms=b_ms, bound_by=by,
+                         bytes=n_bytes)
+        log(f"[count] {name} alone at the union shape ({rows} x {length}, "
+            f"{n_buckets} x {bucket} table, {n_valid} valid windows): {k_ms}"
+            f" ms, bound {b_ms} ms by {by} ({n_bytes} B) [{tag}]")
+    whole_b = payload_b + probe_b - pairs_b - (g.n_bins + 1) * 4
+    out["count_fp"]["bound_ms"], out["count_fp"]["bound_by"] = bound_ms(
+        whole_b, n_valid * HASH_OPS + compares)
+    log(f"[count] count_fp at the union shape: {ms['binned']} ms (plain "
+        f"{ms['plain']} ms), bound {out['count_fp']['bound_ms']} ms by "
+        f"{out['count_fp']['bound_by']} ({whole_b} B); launches {launches}; "
+        f"the fine split, not launched here, would take "
+        f"{out['fp_fine_split_kernel']['ms']} ms against torch.sort's "
+        f"{out['torch_sort']['ms']} ms [{tag}]")
+    return out
 
 
 def phase_exact(dev, tag: str, ctx: dict) -> dict:
@@ -938,6 +1083,7 @@ def phase_identify(tag: str):
     """identify / batch-identify on GPU and CPU; main-path kernel launches
     and the fixture (DB, samples, report directory)."""
     from strainscan_tpu_torch import cli
+    from strainscan_tpu_torch.identify import vote
     from strainscan_tpu_torch.ops import probe
 
     rng = np.random.default_rng(5)
@@ -967,11 +1113,34 @@ def phase_identify(tag: str):
         secs[f"{device}/batch"] = time.perf_counter() - t
         check(rc == 0, f"batch-identify on {device}")
 
+    # the L2 union counts' share of the main path's launches: their tables
+    # hold few bins, so no fine split
+    union = dict.fromkeys(FP_KERNELS, 0)
+    count_union = vote._count_union
+
+    def counted_union(*args, **kw):
+        before = dict(probe.LAUNCHES)
+        try:
+            return count_union(*args, **kw)
+        finally:
+            for n in FP_KERNELS:
+                union[n] += probe.LAUNCHES[n] - before[n]
+
     probe.reset_launches()
-    run(GPU)
+    vote._count_union = counted_union
+    try:
+        run(GPU)
+    finally:
+        vote._count_union = count_union
     launches = dict(probe.LAUNCHES)
-    check(all(launches[n] > 0 for n in FP_KERNELS),
+    # the fine split only where a coarse bin holds several fine bins: this
+    # DB's table holds at most 256 (phase 7's launches it)
+    check(all(launches[n] > 0 for n in FP_KERNELS
+              if n != "fp_fine_split_kernel"),
           f"main path launches {launches}")
+    check(union["fp_bin_probe_kernel"] > 0
+          and union["fp_fine_split_kernel"] == 0,
+          f"the L2 union counts' launches {union}")
     t = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "strainscan_tpu_torch.cli", "identify", "-i",
@@ -1014,8 +1183,10 @@ def phase_identify(tag: str):
         f"{secs[GPU + '/' + names[0]]}, warm (batch-identify) {warm}, "
         f"fresh process {secs['process/single']}; CPU warm "
         f"{secs['cpu/batch'] / len(names)} [{tag}]")
-    log(f"[identify] main-path kernel launches {launches}")
-    return launches, dict(db=db, samples=samples, out=out)
+    log(f"[identify] main-path kernel launches {launches}, of them in the "
+        f"L2 union counts {union}")
+    return launches, dict(db=db, samples=samples, out=out,
+                          union_launches=union)
 
 
 def free_port() -> int:
@@ -1321,6 +1492,12 @@ def phase_ecoli(tag: str) -> dict:
         fqs, db, os.path.join(out, GPU, p), GPU) for p in ("cold", "warm")}
     launches = {name: sum(r["launches"].get(name, 0) for rs in recs.values()
                           for r in rs.values()) for name in FP_KERNELS}
+    union = {name: sum(r["union_launches"].get(name, 0)
+                       for rs in recs.values() for r in rs.values())
+             for name in FP_KERNELS}
+    check(union["fp_bin_probe_kernel"] > 0
+          and union["fp_fine_split_kernel"] == 0,
+          f"the L2 union counts' launches {union}")
     for what, rs in recs.items():
         for name, rec in rs.items():
             bad = scale_parity.faults(f"{what} {name}", rec, GPU)
@@ -1354,8 +1531,9 @@ def phase_ecoli(tag: str) -> dict:
     log(f"[ecoli] reports byte-identical: GPU cold = GPU warm for "
         f"{len(fqs)} samples, = CPU for {len(shared)}; truth found; "
         f"intramix reached the Enet vote. s/sample {secs} [{tag}]")
-    log(f"[ecoli] count_fp kernel launches on this path {launches}")
-    return launches
+    log(f"[ecoli] count_fp kernel launches on this path {launches}, of them "
+        f"in the L2 union counts {union}")
+    return dict(launches=launches, union=union)
 
 
 def main() -> int:
@@ -1435,21 +1613,37 @@ def run(dev, tag: str) -> list:
                     "plain_ms": min(prep256["ms"]["plain"]),
                     "bound_ms": prep256["bound"][0]},
     }]
+    union = count["union"]
     for name in FP_KERNELS:   # the four kernels of the binned count_fp
         st = fp["stages"][name]
+        at_union = {}
+        if name in ("fp_fine_split_kernel", "fp_bin_probe_kernel"):
+            # ms and bound of one call at the union shape (the split called
+            # alone: count_fp does not launch it there), the launches in
+            # the main path's L2 union counts (phase 7; phase 4's too)
+            at_union = {"at_union": {
+                "ms": union[name]["ms"], "bound_ms": union[name]["bound_ms"],
+                "bound_by": union[name]["bound_by"],
+                "launches": ecoli["union"][name],
+                "launches_synth": ident["union_launches"][name],
+                "launches_per_count_fp": union["launches"][name],
+                "shape": f"{BATCH} x {MAXLEN} (100 bp, vlen), 256 x 64 "
+                         f"table", **({"library_ms": union["torch_sort"]["ms"]}
+                                      if name == "fp_fine_split_kernel"
+                                      else {})}}
         kernels.append({
             "name": name, "route": "cuda", "source": src + "count_fp_bins.cu",
             "replaces": "strainscan_tpu/ops/pallas_probe.py:168",
             "part_of": "count_fp",
-            "launches": launches[name],
+            "launches": ecoli["launches"][name],
+            "launches_synth": launches[name],
             "launches_per_sample": per_sample[name],
-            "launches_ecoli": ecoli[name],
             "max_abs_err": max(parity[name][0],
                                *(d["errs"][name]
                                  for d in fp["designs"].values())),
             "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-            "library_ms": st["library_ms"]})
+            "library_ms": st["library_ms"], **at_union})
     for name in EXACT_KERNELS:   # the two kernels of count_exact
         kernels.append({
             "name": name, "route": "cuda", "source": src + "count_exact.cu",

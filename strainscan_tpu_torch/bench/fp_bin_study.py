@@ -17,13 +17,26 @@ it, padded with invalid codes to L = 256 (identify's shape) or not
   ``fp_coarse_scatter``, ``fp_fine_split``), so it can time a parent
   commit's kernels beside this one's in one call, in separate processes:
   parent, change, change, parent (``--root`` names the tree to import).
+  It also times ``fp_bin_probe_kernel`` alone on the front's pairs.
 * ``fanout``: the bin sort and the whole ``count_fp`` at both lengths by
   coarse bins (64, 128, 256) and rows per block of the coarse passes
   (16, 24, 32, 36: about 31, 21, 16 and 14 blocks per multiprocessor of
   an H100 at 65,536 reads).
+* ``union``: the L2 union count's shape at identify-ecoli's deep sample
+  (``identify/vote.py::_count_union``): a table of 7,400 keys drawn from a
+  seeded 200 kb genome's both strands (256 buckets x 64 lanes: one fine
+  bin, one coarse bin) and 65,536 reads of 100 bp of that genome, half
+  reverse-complemented, padded to L = 256 as vlen.  ``count_fp``, its
+  front and each of its kernels alone, in two turns, with the kernels'
+  launches per ``count_fp`` (a tree that skips the fine split launches
+  none), the fine split beside ``torch.sort`` of the pairs as int64 keys,
+  and the probe's bound (pairs, bin starts, the table's rows and the
+  count sectors its hits touch, each once).  Like ``designs`` it times
+  any tree given with ``--root``.
 
     python strainscan_tpu_torch/bench/fp_bin_study.py designs [--root DIR]
     python -m strainscan_tpu_torch.bench.fp_bin_study fanout
+    python strainscan_tpu_torch/bench/fp_bin_study.py union [--root DIR]
 
 Prints one JSON line per study, each with the card's name and power limit.
 Raises without a CUDA device: no number here comes from the CPU.
@@ -48,6 +61,11 @@ REPS = 20
 COARSE_BINS = (64, 128, 256)
 ROWS_PER_BLOCK = (16, 24, 32, 36)
 SEED = 0
+# the union study: identify-ecoli's deep-sample union table and its reads
+UNION_KEYS = 7_400
+UNION_GENOME = 200_000
+UNION_READ_LEN = 100
+UNION_L = 256
 
 
 def card_line() -> str:
@@ -141,9 +159,11 @@ def three_kernel_front(probe, dev, counts, b: dict, n_buckets: int,
 
 
 def bin_sort_front(probe, dev, counts, b: dict, n_buckets: int, bucket: int,
-                   length: int, seed: int, **geometry) -> dict:
+                   length: int, seed: int, table=None, **geometry) -> dict:
     """The two-level bin sort: ``{name: (set-up, call)}`` for the front and
-    each kernel alone, and the batch's bin totals."""
+    each kernel alone (the fine split called directly, whether or not the
+    tree's front runs it; with ``table``, the probe on its pairs too), the
+    batch's bin totals, its valid windows and the buffers."""
     g = probe.fp_bin_geometry(n_buckets, bucket, BATCH, length - K + 1, dev,
                               **geometry)
     buf = probe.FpScratch().buffers(dev, g, BATCH * (length - K + 1))
@@ -170,20 +190,25 @@ def bin_sort_front(probe, dev, counts, b: dict, n_buckets: int, bucket: int,
     totals = buf.coarse_count.clone()
     scatter()
     split()
-    return dict(totals=buf.bin_start.diff(), fns={
+    fns = {
         "front": (None, lambda: probe.fp_bin_front(counts, b["words"], buf,
                                                    g, **kw)),
         "fp_coarse_count_kernel": (None, lambda: (
             count(), buf.coarse_count.zero_())),
         "fp_coarse_scatter_kernel": (
             lambda: buf.coarse_count.copy_(totals), scatter),
-        "fp_fine_split_kernel": (None, split)})
+        "fp_fine_split_kernel": (None, split)}
+    if table is not None:
+        fns["fp_bin_probe_kernel"] = (None, lambda: probe.fp_bin_probe(
+            counts, buf.pairs, buf.bin_start, table, shift=g.shift))
+    return dict(totals=buf.bin_start.diff(), fns=fns, geometry=g, buf=buf,
+                n_valid=int(buf.bin_start[-1]))
 
 
-def front_of(probe, *args, **geometry) -> dict:
+def front_of(probe, *args, table=None, **geometry) -> dict:
     if hasattr(probe, "bin_scan"):
         return three_kernel_front(probe, *args)
-    return bin_sort_front(probe, *args, **geometry)
+    return bin_sort_front(probe, *args, table=table, **geometry)
 
 
 def designs(dev, fx: dict) -> dict:
@@ -203,7 +228,7 @@ def designs(dev, fx: dict) -> dict:
                 counts, b["words"], table, length=length, k=K, seed=fpt.seed,
                 vlen=b["vlen"], scratch=s))
         front = front_of(probe, dev, counts, b, fpt.n_buckets, fpt.bucket,
-                         length, fpt.seed)
+                         length, fpt.seed, table=table)
         for name, fn in front["fns"].items():
             fns[f"{name}_ms_L{length}"] = fn
         totals = front["totals"]
@@ -242,7 +267,116 @@ def fanout(dev, fx: dict) -> dict:
     return out
 
 
-STUDIES = {"designs": designs, "fanout": fanout}
+def union_fixture(dev) -> dict:
+    """The union study's table on ``dev`` and its batch as a vlen
+    payload."""
+    import torch
+
+    from strainscan_tpu_torch.index.hashtable import (FpTable,
+                                                      fp_table_to_device)
+    from strainscan_tpu_torch.kmer import device as kdev
+    from strainscan_tpu_torch.kmer import pack
+
+    rng = np.random.default_rng(SEED)
+    genome = rng.integers(0, 4, size=UNION_GENOME).astype(np.uint8)
+    km, _ = pack.pack_kmers(genome, K)
+    keys = np.unique(np.concatenate([km, pack.revcomp_packed(km, K)]))
+    fpt = FpTable.build(np.sort(rng.choice(keys, UNION_KEYS, replace=False)),
+                        k=K)
+    starts = rng.integers(0, UNION_GENOME - UNION_READ_LEN, size=BATCH)
+    reads = genome[starts[:, None] + np.arange(UNION_READ_LEN)[None, :]]
+    flips = rng.random(BATCH) < 0.5
+    reads[flips] = (3 - reads[flips])[:, ::-1]
+    codes = np.full((BATCH, UNION_L), 4, np.uint8)
+    codes[:, :UNION_READ_LEN] = reads
+    words, _ = pack.bitpack_codes(codes)
+    return dict(fpt=fpt, table=fp_table_to_device(fpt, dev).fp, codes=codes,
+                words=kdev.from_u32(words).to(dev),
+                vlen=torch.from_numpy(pack.valid_prefix_lens(codes)).to(dev))
+
+
+def probe_bytes(table, pairs, n_bins: int) -> int:
+    """The probe's bytes, each once: the pairs and bin starts read, the
+    distinct rows they probe, the distinct 32 B count sectors their hits
+    touch (read and written), the trash slot."""
+    import torch
+
+    from strainscan_tpu_torch.index.hashtable import lookup_fp_from_prep
+
+    bucket = table.shape[1]
+    slots = lookup_fp_from_prep(table, pairs[:, 1], pairs[:, 0], bucket)
+    rows = int(torch.unique(pairs[:, 1]).numel())
+    sectors = int(torch.unique(slots[slots >= 0] // 8).numel())
+    return (pairs.shape[0] * 8 + (n_bins + 1) * 4 + rows * bucket * 4
+            + sectors * 32 * 2 + 8)
+
+
+def union(dev, fx: dict) -> dict:
+    """count_fp, its front and each kernel at the union shape, in two
+    turns; the launches of one count_fp; torch.sort of the pairs; and, in
+    a tree whose probe has several ways to add a spread bin's hits, the
+    probe and count_fp in each."""
+    import torch
+
+    from strainscan_tpu_torch.bench import bound_ms
+    from strainscan_tpu_torch.ops import probe
+
+    fpt, table = fx["fpt"], fx["table"]
+    n_buckets, bucket = table.shape
+    counts = torch.zeros(fpt.n_slots + 1, dtype=torch.int32, device=dev)
+    b = dict(words=fx["words"], vlen=fx["vlen"])
+    kw = dict(length=UNION_L, k=K, seed=fpt.seed, vlen=fx["vlen"])
+    scratch = probe.FpScratch()
+
+    def count_fp():
+        probe.count_fp(counts, fx["words"], table, scratch=scratch, **kw)
+
+    front = bin_sort_front(probe, dev, counts, b, n_buckets, bucket, UNION_L,
+                           fpt.seed, table=table)
+    g, buf, n = front["geometry"], front["buf"], front["n_valid"]
+    keys = buf.coarse_pairs[:n].view(torch.int64)   # (bucket, fp)
+    fns = {"count_fp": (None, count_fp), **front["fns"],
+           "torch_sort": (None, lambda: torch.sort(keys, dim=0))}
+    adds = getattr(probe, "PROBE_ADDS", {})
+    for mode in adds if len(adds) > 1 else ():
+        def with_add(fn, mode=mode):
+            def run():
+                probe.PROBE_ADD, was = mode, probe.PROBE_ADD
+                try:
+                    fn()
+                finally:
+                    probe.PROBE_ADD = was
+            return run
+        fns[f"count_fp_{mode}"] = (None, with_add(count_fp))
+        fns[f"fp_bin_probe_kernel_{mode}"] = (
+            None, with_add(front["fns"]["fp_bin_probe_kernel"][1]))
+    out: dict = {"shape": f"{BATCH} x {UNION_L} ({UNION_READ_LEN} bp, vlen)",
+                 "table": [n_buckets, bucket], "n_keys": fpt.n_keys,
+                 "n_bins": g.n_bins, "n_coarse": g.n_coarse,
+                 "valid_windows": n, "probe_add": getattr(probe, "PROBE_ADD",
+                                                          None)}
+    probe.reset_launches()
+    count_fp()
+    torch.cuda.synchronize()
+    out["launches_per_count_fp"] = {
+        name: probe.LAUNCHES[name] for name in (
+            "fp_coarse_count_kernel", "fp_coarse_scatter_kernel",
+            "fp_fine_split_kernel", "fp_bin_probe_kernel")}
+    n_bytes = probe_bytes(table, buf.pairs[:n], g.n_bins)
+    out["fp_bin_probe_bound"] = dict(zip(("ms", "by"), bound_ms(n_bytes)),
+                                     bytes=n_bytes)
+    ms = {f"{name}_ms": [] for name in fns}
+    for _ in range(2):
+        for name, (setup, fn) in fns.items():
+            counts.zero_()
+            if setup is not None:
+                setup()
+            ms[f"{name}_ms"].append(cuda_ms(fn))
+    return {**out, **ms}
+
+
+STUDIES = {"designs": (designs, fixture), "fanout": (fanout, fixture),
+           "union": (union, union_fixture)}
 
 
 def main(argv=None) -> int:
@@ -267,10 +401,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     tree = os.path.dirname(os.path.dirname(os.path.abspath(
         strainscan_tpu_torch.__file__)))
-    fx = fixture(dev)
+    fixtures: dict = {}
     card = card_line()
     for name in args.studies:
-        out = STUDIES[name](dev, fx)
+        study, make = STUDIES[name]
+        if make not in fixtures:
+            fixtures[make] = make(dev)
+        out = study(dev, fixtures[make])
         print(json.dumps({"study": name, "tree": tree, "card": card,
                           "batch": BATCH, **out}), flush=True)
     return 0

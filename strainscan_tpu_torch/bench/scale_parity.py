@@ -32,7 +32,9 @@ that did not reach the Enet vote (``StrainVote.report``).  It writes
 
 ``trace`` runs one warm identify of a sample on the GPU under
 ``torch.profiler`` and prints the device-busy share of each ``identify/*``
-phase, the top device operations and the longest idle gaps of the device.
+phase (and of the L2 union count, ``identify/l2_vote/union_count``, inside
+``identify/l2_vote``), the device operations each of them launched, the top
+device operations and the longest idle gaps of the device.
 
 The ``ref`` half of ``benchmarks/scale_parity.py`` (the reference CLI with
 jellyfish, against the fixture's REFDB/) is not here: it needs the
@@ -85,12 +87,14 @@ _RESIDENT: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
 def instrument(rec: dict):
     """While the body runs, append the key count of every fp table
     uploaded to a device to ``rec["uploads_keys"]`` and the seconds of
-    every L2 union count to ``rec["union_count_s"]``."""
+    every L2 union count to ``rec["union_count_s"]``, and add the kernel
+    launches of the L2 union counts into ``rec["union_launches"]``."""
     from strainscan_tpu_torch.identify import vote
     from strainscan_tpu_torch.ops import count as ops_count
+    from strainscan_tpu_torch.ops import probe
 
     upload, union = ops_count.fp_table_to_device, vote._count_union
-    rec.update(uploads_keys=[], union_count_s=[])
+    rec.update(uploads_keys=[], union_count_s=[], union_launches={})
 
     def counted_upload(fpt, device):
         table = upload(fpt, device)
@@ -100,9 +104,14 @@ def instrument(rec: dict):
         return table
 
     def timed_union(*args, **kw):
+        before = dict(probe.LAUNCHES)
         t0 = time.perf_counter()
         out = union(*args, **kw)
         rec["union_count_s"].append(time.perf_counter() - t0)
+        for name, n in probe.LAUNCHES.items():
+            if n > before[name]:
+                rec["union_launches"][name] = (
+                    rec["union_launches"].get(name, 0) + n - before[name])
         return out
 
     ops_count.fp_table_to_device = counted_upload
@@ -327,13 +336,33 @@ def merge_intervals(spans) -> list:
     return out
 
 
+def _ops(evs, top: int) -> list:
+    """Device events by name: calls and total ms, the largest first."""
+    ops: dict = {}
+    for e in evs:
+        rec = ops.setdefault(e["name"][:100], [e["cat"], 0, 0.0])
+        rec[1] += 1
+        rec[2] += e["dur"] / 1e3
+    return [{"name": n, "cat": c, "calls": k, "ms": ms} for n, (c, k, ms) in
+            sorted(ops.items(), key=lambda kv: -kv[1][2])[:top]]
+
+
 def trace_summary(events: list, top: int = 12) -> dict:
     """Per ``identify/*`` range of a Chrome trace (the phases, and the L2
     union count inside ``identify/l2_vote``): wall ms, device-busy ms and
-    share; the device operations by total ms; the longest gaps with no
-    device operation inside the phases."""
+    share, and the device operations the range launched (a device event
+    belongs to every range that holds the host time of the runtime call
+    that launched it, matched by its correlation id; else its own start):
+    by name, calls and ms, and their total ms; over the whole trace, the
+    device operations by total ms; the longest gaps with no device
+    operation inside the phases."""
     xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
     dev = [e for e in xs if e.get("cat") in DEVICE_CATS]
+    launch = {e["args"]["correlation"]: e["ts"] for e in xs
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    launched_at = [launch.get(e.get("args", {}).get("correlation"), e["ts"])
+                   for e in dev]
     phases = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in xs
               if e.get("cat") == "user_annotation"
               and e["name"].startswith("identify/")}
@@ -344,23 +373,20 @@ def trace_summary(events: list, top: int = 12) -> dict:
         clipped = [(max(s, p0), min(e, p1)) for s, e in busy
                    if e > p0 and s < p1]
         on = sum(e - s for s, e in clipped)
+        mine = [e for e, t in zip(dev, launched_at) if p0 <= t < p1]
         out["phases"][name] = {"wall_ms": (p1 - p0) / 1e3,
                                "device_busy_ms": on / 1e3,
                                "device_busy_share": on / (p1 - p0)
-                               if p1 > p0 else 0.0}
+                               if p1 > p0 else 0.0,
+                               "device_op_ms": sum(e["dur"] for e in mine)
+                               / 1e3,
+                               "device_ops": _ops(mine, top)}
         edges = [p0] + [t for s, e in clipped for t in (s, e)] + [p1]
         gaps += [((edges[i + 1] - edges[i]) / 1e3, name,
                   (edges[i] - p0) / 1e3)
                  for i in range(0, len(edges) - 1, 2)]
-    ops: dict = {}
-    for e in dev:
-        rec = ops.setdefault(e["name"][:100], [e["cat"], 0, 0.0])
-        rec[1] += 1
-        rec[2] += e["dur"] / 1e3
-    out["device_ms"] = sum(r[2] for r in ops.values())
-    out["top_device_ops"] = [
-        {"name": n, "cat": c, "calls": k, "ms": ms} for n, (c, k, ms) in
-        sorted(ops.items(), key=lambda kv: -kv[1][2])[:top]]
+    out["device_ms"] = sum(e["dur"] for e in dev) / 1e3
+    out["top_device_ops"] = _ops(dev, top)
     out["idle_gaps"] = [{"ms": ms, "phase": p, "at_ms": at}
                         for ms, p, at in sorted(gaps, reverse=True)[:top]]
     return out

@@ -12,10 +12,12 @@
   ``fp_coarse_scatter_kernel`` (walk again, write each window's ``(fp,
   bucket)`` into coarse-bin order through shared memory),
   :func:`fp_fine_split` -> ``fp_fine_split_kernel`` (each coarse bin's pairs
-  into fine-bin order, and the fine bins' starts) and :func:`fp_bin_probe`
-  -> ``fp_bin_probe_kernel`` (each fine bin's table rows staged in shared
+  into fine-bin order, and the fine bins' starts; not launched where every
+  coarse bin is one fine bin) and :func:`fp_bin_probe` ->
+  ``fp_bin_probe_kernel`` (each fine bin's table rows staged in shared
   memory, its windows resolved there, one added to the hit slot or to the
-  trash slot).  :func:`fp_bin_parity` holds each against its twin.
+  trash slot; a table of few bins cuts each bin's windows into slices, one
+  per block).  :func:`fp_bin_parity` holds each against its twin.
 * :func:`count_exact`: the exact probe mode, in place, as two kernels
   (``csrc/count_exact.cu``): :func:`exact_probe` -> ``count_exact_kernel``
   (each read's valid windows walked with the same rolling key, queued per
@@ -224,6 +226,11 @@ BLOCKS_PER_SM = 16
 # takes fewer rows when their windows would not fit
 STAGE_PAIRS = 8192
 MAX_FINE = 1024       # fine bins per coarse bin (kSplitThreads)
+# how a spread fp_bin_probe_kernel adds its hits (fp_bin_probe_launch's
+# add): one global atomic per hit, per distinct slot of a warp's hits, or
+# into a shared-memory copy of the bin's counts
+PROBE_ADDS = {"atomic": 0, "warp": 1, "shared": 2}
+PROBE_ADD = "atomic"
 # rows per chunk of the plain probe (its [rows, bucket] gather: 256 MiB at
 # bucket 64)
 PLAIN_CHUNK_PAIRS = 1 << 20
@@ -245,6 +252,20 @@ def fp_bin_stride(bucket: int, shift: int, vec: bool) -> int:
     if (bucket << shift) * 4 > SLICE_BYTES:
         return 0
     return bucket + 4 if vec else bucket | 1
+
+
+def fp_probe_parts(n_bins: int, slots: int) -> int:
+    """Slices per fine bin of ``fp_bin_probe_kernel``'s work items (its
+    launcher's rule): enough that ``n_bins * parts`` items fill the card's
+    ``slots`` block slots, and 1 where the bins alone fill them."""
+    return max(1, -(-slots // n_bins))
+
+
+def fp_probe_slice(begin: int, end: int, part: int, parts: int) -> tuple:
+    """The windows ``[lo, hi)`` that item ``part`` of ``parts`` takes of a
+    bin's ``[begin, end)`` (the kernel's arithmetic, in 64 bits there)."""
+    n = end - begin
+    return begin + n * part // parts, begin + n * (part + 1) // parts
 
 
 class FpGeometry(NamedTuple):
@@ -550,20 +571,35 @@ def fp_fine_split(pairs: torch.Tensor, bin_start: torch.Tensor,
     return pairs
 
 
+def fp_split_needed(g: FpGeometry) -> bool:
+    """Whether the bin sort needs its fine split: False where every coarse
+    bin is one fine bin (tables of at most COARSE_BINS fine bins), whose
+    pairs the coarse scatter already leaves in fine-bin order."""
+    return g.n_coarse < g.n_bins
+
+
 def fp_bin_front(counts: torch.Tensor, words: torch.Tensor, buf: FpBuffers,
                  g: FpGeometry, *, length: int, k: int, seed: int,
                  n_buckets: int, canonical: bool = False,
                  vlen: Optional[torch.Tensor] = None,
                  vbytes: Optional[torch.Tensor] = None) -> FpBuffers:
-    """The bin sort of :func:`count_fp`: its three passes into ``buf``
-    (``buf.pairs`` grouped by fine bin, ``buf.bin_start``), the invalid and
-    padding windows into the trash slot ``counts[-1]``."""
+    """The bin sort of :func:`count_fp` into ``buf``, the invalid and
+    padding windows into the trash slot ``counts[-1]``; ``coarse_count``
+    is left zeroed for the next batch.  Returns the buffers whose ``pairs``
+    are grouped by fine bin, with their starts in ``bin_start``: ``buf``
+    after the fine split, or, where :func:`fp_split_needed` is False, a
+    view of ``buf`` whose ``pairs`` and ``bin_start`` are its
+    ``coarse_pairs`` and ``coarse_start`` (no split is launched)."""
     kw = dict(length=length, k=k, seed=seed, n_buckets=n_buckets,
               coarse_shift=g.coarse_shift, rows_per_block=g.rows_per_block,
               canonical=canonical, vlen=vlen, vbytes=vbytes)
     fp_coarse_count(buf.coarse_count, buf.block_base, counts, words, **kw)
     fp_coarse_scatter(buf.coarse_pairs, buf.coarse_start, buf.coarse_count,
                       buf.block_base, words, stage_cap=g.stage_cap, **kw)
+    if not fp_split_needed(g):
+        buf.coarse_count.zero_()
+        return buf._replace(pairs=buf.coarse_pairs,
+                            bin_start=buf.coarse_start)
     fp_fine_split(buf.pairs, buf.bin_start, buf.coarse_count,
                   buf.coarse_pairs, buf.coarse_start, shift=g.shift,
                   coarse_shift=g.coarse_shift)
@@ -590,7 +626,8 @@ def fp_bin_probe(counts: torch.Tensor, pairs: torch.Tensor,
     pair up in its fingerprint row (the lowest matching lane) and add one to
     its slot of ``counts``, or to the trash slot ``counts[-1]`` on a miss.
     A persistent grid walks the bins, staging each bin's rows in shared
-    memory."""
+    memory; with fewer bins than the card has block slots, each bin's
+    windows in :func:`fp_probe_parts` slices (:func:`fp_probe_slice`)."""
     _check(counts, "counts", torch.int32, 1)
     _check(pairs, "pairs", torch.int32, 2)
     _check(bin_start, "bin_start", torch.int32, 1)
@@ -610,7 +647,8 @@ def fp_bin_probe(counts: torch.Tensor, pairs: torch.Tensor,
     _build.check(_build.lib().fp_bin_probe_launch(
         counts.device.index, pairs.data_ptr(), bin_start.data_ptr(), n_bins,
         fp_table.data_ptr(), bucket, shift, fp_bin_stride(bucket, shift, vec),
-        int(vec), counts.data_ptr(), counts.shape[0] - 1, _stream(counts)),
+        int(vec), PROBE_ADDS[PROBE_ADD], counts.data_ptr(),
+        counts.shape[0] - 1, _stream(counts)),
         "fp_bin_probe_kernel launch")
     LAUNCHES["fp_bin_probe_kernel"] += 1
     return counts
@@ -651,8 +689,8 @@ def count_fp(counts: torch.Tensor, words: torch.Tensor,
         batches keeps one); a fresh one when None.
 
     On a CUDA device: :func:`fp_bin_front` (:func:`fp_coarse_count`,
-    :func:`fp_coarse_scatter`, :func:`fp_fine_split`), then
-    :func:`fp_bin_probe`.  Returns ``counts``.
+    :func:`fp_coarse_scatter` and, where :func:`fp_split_needed`,
+    :func:`fp_fine_split`), then :func:`fp_bin_probe`.  Returns ``counts``.
     """
     valid = _payload(words, vlen, vbytes, length)
     _check(fp_table, "fp_table", torch.int32, 2)
@@ -676,9 +714,9 @@ def count_fp(counts: torch.Tensor, words: torch.Tensor,
                         words.device)
     buf = (scratch or FpScratch()).buffers(words.device, g,
                                            n_rows * (length - k + 1))
-    fp_bin_front(counts, words, buf, g, length=length, k=k, seed=seed,
-                 n_buckets=n_buckets, canonical=canonical, vlen=vlen,
-                 vbytes=vbytes)
+    buf = fp_bin_front(counts, words, buf, g, length=length, k=k,
+                       seed=seed, n_buckets=n_buckets, canonical=canonical,
+                       vlen=vlen, vbytes=vbytes)
     return fp_bin_probe(counts, buf.pairs, buf.bin_start, fp_table,
                         shift=g.shift)
 

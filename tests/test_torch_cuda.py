@@ -247,9 +247,10 @@ def _host_oracle(fpt, codes, canonical=False):
 
 @pytest.mark.parametrize("form", ["vlen", "vbytes", "codes"])
 def test_count_fp_kernel_equals_plain(dev, form):
-    """The binned count_fp: its four kernels once each (the three passes of
-    the bin sort and the probe), the counts equal to count_fp_plain and to
-    the host oracle, trash slot included."""
+    """The binned count_fp: its kernels once each (the passes of the bin
+    sort and the probe; the fine split only where a coarse bin holds
+    several fine bins, which this 8-bin table's do not), the counts equal
+    to count_fp_plain and to the host oracle, trash slot included."""
     rng = np.random.default_rng(1)
     genome, keys = _genome_keys(rng)
     fpt = FpTable.build(keys, k=31)
@@ -265,8 +266,11 @@ def test_count_fp_kernel_equals_plain(dev, form):
     probe.count_fp_plain(c2, reads, table.fp, length=160, k=31,
                          seed=fpt.seed, **valid)
     torch.cuda.synchronize()
-    assert {n: probe.LAUNCHES[n] - before[n] for n in FP_KERNELS} == \
-        dict.fromkeys(FP_KERNELS, 1)
+    g = probe.fp_bin_geometry(fpt.n_buckets, fpt.bucket, reads.shape[0],
+                              130, dev)
+    assert g.n_bins == 8 and not probe.fp_split_needed(g)
+    assert {n: probe.LAUNCHES[n] - before[n] for n in FP_KERNELS} == {
+        **dict.fromkeys(FP_KERNELS, 1), "fp_fine_split_kernel": 0}
     assert torch.equal(c1, c2)
     assert np.array_equal(c1.cpu().numpy(), _host_oracle(fpt, codes))
     assert int(c1[:-1].sum()) > 100_000
@@ -275,7 +279,25 @@ def test_count_fp_kernel_equals_plain(dev, form):
 FP_CASES = ["small_table", "bucket16", "bucket6", "canonical",
             "all_invalid", "vlen_zero", "mid_read_n", "codes", "unstaged",
             "bucket32", "one_row", "coarse8", "unstaged_blocks",
-            "rows_per_block"]
+            "rows_per_block", "union_one_bin", "few_bins", "parts_unstaged"]
+
+
+def _union_batch(rng, rows, n_keys=7_400):
+    """The L2 union count's shape: a table of n_keys of a 200 kb genome's
+    keys (7,400: 256 buckets x 64, one bin) and rows reads of 100 bp of it,
+    half reverse-complemented, padded to L = 256, as vlen; the codes, the
+    table, the reads and their validity."""
+    genome, keys = _genome_keys(rng, glen=200_000)
+    fpt = FpTable.build(np.sort(rng.choice(keys, n_keys, replace=False)),
+                        k=31)
+    starts = rng.integers(0, genome.size - 100, size=rows)
+    codes = np.full((rows, 256), 4, np.uint8)
+    codes[:, :100] = genome[starts[:, None] + np.arange(100)]
+    flips = rng.random(rows) < 0.5
+    codes[flips, :100] = (3 - codes[flips, :100])[:, ::-1]
+    words, _ = pack.bitpack_codes(codes)
+    return codes, fpt, from_u32(words), {
+        "vlen": torch.from_numpy(pack.valid_prefix_lens(codes))}
 
 
 @pytest.mark.parametrize("case", FP_CASES)
@@ -287,12 +309,28 @@ def test_count_fp_binned_kernels_equal_plain(dev, case, monkeypatch):
     windows, all-invalid batches, rows of valid length 0, mid-read Ns, raw
     codes, bins too large for shared memory, a one-row batch, 8 coarse bins
     of many fine bins, blocks with more windows than their staging buffer
-    (each pair written on its own), one row per block."""
+    (each pair written on its own), one row per block; the L2 union count's
+    shape (one bin of 256 x 64 and 65,536 reads of 100 bp at L = 256: no
+    fine split, the bin's windows cut into as many parts as the card has
+    block slots), 16 bins each its own coarse bin (no fine split), and
+    parts too short to stage their bin's rows."""
     rng = np.random.default_rng(FP_CASES.index(case))
-    genome, keys = _genome_keys(rng, glen=1500 if case == "small_table"
-                                else 20_000)
-    bucket = {"bucket16": 16, "bucket6": 6, "bucket32": 32}.get(case, 64)
-    fpt = FpTable.build(keys, k=31, bucket=bucket)
+    length, windows = 160, 130
+    union = case in ("union_one_bin", "parts_unstaged")
+    if union:
+        rows = 65_536 if case == "union_one_bin" else 100
+        codes, fpt, reads, valid = _union_batch(rng, rows)
+        length, windows = 256, 226
+        bucket = fpt.bucket
+        assert (fpt.n_buckets, bucket) == (256, 64)
+        if case == "parts_unstaged":   # < 128 windows a part, however many
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            assert rows * 70 // probe.fp_probe_parts(1, sms) < 128
+    else:
+        genome, keys = _genome_keys(rng, glen={
+            "small_table": 1500, "few_bins": 50_000}.get(case, 20_000))
+        bucket = {"bucket16": 16, "bucket6": 6, "bucket32": 32}.get(case, 64)
+        fpt = FpTable.build(keys, k=31, bucket=bucket)
     if case == "small_table":
         assert fpt.n_buckets < 1 << probe.fp_bin_shift(1 << 20, 64)
     if case == "unstaged":          # 2 bins of 64 buckets x 256 B: 16 KiB
@@ -306,7 +344,8 @@ def test_count_fp_binned_kernels_equal_plain(dev, case, monkeypatch):
     if case == "rows_per_block":    # one row per block: 3,001 blocks
         monkeypatch.setattr(probe, "STAGE_PAIRS", 130)
     form = {"mid_read_n": "vbytes", "codes": "codes"}.get(case, "vlen")
-    codes, reads, valid = _batch(rng, genome, form)
+    if not union:
+        codes, reads, valid = _batch(rng, genome, form)
     if case in ("all_invalid", "vlen_zero", "one_row"):
         if case == "one_row":
             codes = codes[:1]
@@ -322,22 +361,30 @@ def test_count_fp_binned_kernels_equal_plain(dev, case, monkeypatch):
     if case == "unstaged":
         assert probe.fp_bin_stride(bucket, probe.fp_bin_shift(
             fpt.n_buckets, bucket), True) == 0
-    g = probe.fp_bin_geometry(fpt.n_buckets, bucket, reads.shape[0], 130,
-                              dev)
+    g = probe.fp_bin_geometry(fpt.n_buckets, bucket, reads.shape[0],
+                              windows, dev)
     if case == "coarse8":
         assert (g.n_coarse, g.n_bins) == (8, 128)
     if case == "unstaged_blocks":
         assert (g.rows_per_block, g.stage_cap) == (1, 64)
     if case == "rows_per_block":
         assert (g.rows_per_block, g.stage_cap) == (1, 130)
-    kw = dict(length=160, k=31, seed=fpt.seed, canonical=canonical, **valid)
+    if case in ("union_one_bin", "few_bins", "parts_unstaged"):
+        assert g.n_bins == g.n_coarse == (16 if case == "few_bins" else 1)
+    kw = dict(length=length, k=31, seed=fpt.seed, canonical=canonical,
+              **valid)
     errs = probe.fp_bin_parity(reads, table.fp, **kw)
     assert errs == dict.fromkeys(FP_KERNELS, 0)
     c1 = torch.zeros(fpt.n_slots + 1, dtype=torch.int32, device=dev)
     c2 = c1.clone()
+    before = {n: probe.LAUNCHES[n] for n in FP_KERNELS}
     probe.count_fp(c1, reads, table.fp, **kw)
+    launched = {n: probe.LAUNCHES[n] - before[n] for n in FP_KERNELS}
     probe.count_fp_plain(c2, reads, table.fp, **kw)
     torch.cuda.synchronize()
+    # the fine split only where a coarse bin holds several fine bins
+    assert launched == {**dict.fromkeys(FP_KERNELS, 1),
+                        "fp_fine_split_kernel": int(probe.fp_split_needed(g))}
     assert torch.equal(c1, c2)
     assert np.array_equal(c1.cpu().numpy(),
                           _host_oracle(fpt, codes, canonical))

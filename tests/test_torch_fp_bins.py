@@ -8,9 +8,10 @@ tensors, so through their plain twins, and their composition is held
 against the JAX ``CountPipeline`` (``pallas=False``) and against
 ``count_fp_plain`` on the same batches: every payload form, canonical on and
 off, bucket widths that are and are not multiples of four, one bin and many
-coarse and fine bins, tables smaller than one coarse bin, all-invalid
-batches and reads shorter than k.  The bin geometry and the scratch buffers
-are checked too.
+coarse and fine bins, few bins that are each their own coarse bin (no fine
+split), tables smaller than one coarse bin, all-invalid batches and reads
+shorter than k.  The bin geometry, the scratch buffers and the probe's work
+items (each bin's windows cut into parts) are checked too.
 
 Tolerance: none; counts, bin starts and pairs are integers and must be
 equal (the pairs as a multiset within each bin: the kernels' order inside a
@@ -52,44 +53,49 @@ def _reads(rng, genome, n, length, read_len):
 
 
 # (SLICE_BYTES, coarse bins): the E. coli geometry's rule, which gives these
-# small tables one bin; and 64 KiB / 2**10 smaller fine bins, 8 coarse bins
-GEOMETRIES = {"one_bin": (1 << 16, 256), "many_bins": (1 << 10, 8)}
+# small tables one bin (the L2 union count's 256 x 64 table is one); 16 KiB
+# smaller fine bins, 16 of them at 256 x 64, each its own coarse bin; and
+# 64 KiB / 2**10 smaller fine bins, 8 coarse bins
+GEOMETRIES = {"one_bin": (1 << 16, 256), "few_bins": (1 << 12, 256),
+              "many_bins": (1 << 10, 8)}
+# fine bins of test_stages_equal_jax_and_plain's tables, by bucket width
+# (256 x 64, 1,024 x 16, 8,192 x 6), where each is its own coarse bin
+OWN_COARSE_BINS = {"one_bin": {64: 1, 16: 1, 6: 4},
+                   "few_bins": {64: 16, 16: 16, 6: 64}}
 
 
 @pytest.fixture(params=sorted(GEOMETRIES))
 def geometry(request, monkeypatch):
-    """The coarse bins to sort by, with the fine bins' size patched in."""
-    slice_bytes, coarse_bins = GEOMETRIES[request.param]
-    monkeypatch.setattr(probe, "SLICE_BYTES", slice_bytes)
-    return coarse_bins
+    """The geometry's name, with the fine bins' size patched in."""
+    monkeypatch.setattr(probe, "SLICE_BYTES", GEOMETRIES[request.param][0])
+    return request.param
 
 
 def _staged(counts, words, fp_table, rows_per_block=None, coarse_bins=None,
             **kw):
-    """count_fp as its four stage wrappers (plain twins on the CPU);
-    returns the geometry, the fine bin starts and the pairs too."""
+    """count_fp as it runs its stage wrappers (plain twins on the CPU): the
+    bin sort (fp_bin_front: the two coarse passes, and the fine split where
+    a coarse bin holds several fine bins), then the probe; returns the
+    geometry, the fine bin starts and the pairs too."""
     n_buckets, bucket = fp_table.shape
     m = kw["length"] - K + 1
     g = probe.fp_bin_geometry(n_buckets, bucket, words.shape[0], m, CPU,
                               coarse_bins=coarse_bins,
                               rows_per_block=rows_per_block)
     buf = probe.FpScratch().buffers(CPU, g, words.shape[0] * m)
-    skw = dict(kw, k=K, n_buckets=n_buckets, coarse_shift=g.coarse_shift,
-               rows_per_block=g.rows_per_block)
-    probe.fp_coarse_count(buf.coarse_count, buf.block_base, counts, words,
-                          **skw)
-    total = int(buf.coarse_count.sum())
-    probe.fp_coarse_scatter(buf.coarse_pairs, buf.coarse_start,
-                            buf.coarse_count, buf.block_base, words,
-                            stage_cap=g.stage_cap, **skw)
-    assert int(buf.coarse_start[-1]) == total
-    probe.fp_fine_split(buf.pairs, buf.bin_start, buf.coarse_count,
-                        buf.coarse_pairs, buf.coarse_start, shift=g.shift,
-                        coarse_shift=g.coarse_shift)
-    assert int(buf.bin_start[-1]) == total and not buf.coarse_count.any()
-    probe.fp_bin_probe(counts, buf.pairs, buf.bin_start, fp_table,
+    trash = int(counts[-1])
+    front = probe.fp_bin_front(counts, words, buf, g, k=K,
+                               n_buckets=n_buckets, **kw)
+    total = int(front.bin_start[-1])
+    assert total + int(counts[-1]) - trash == words.shape[0] * m
+    assert not buf.coarse_count.any()    # zero for the next batch
+    skipped = g.n_coarse == g.n_bins     # each coarse bin is one fine bin
+    assert probe.fp_split_needed(g) is not skipped
+    assert (front.pairs is buf.coarse_pairs) is skipped
+    assert (front.bin_start is buf.coarse_start) is skipped
+    probe.fp_bin_probe(counts, front.pairs, front.bin_start, fp_table,
                        shift=g.shift)
-    return g, buf.bin_start, buf.pairs[:total]
+    return g, front.bin_start, front.pairs[:total]
 
 
 def _pair_keys(p):
@@ -149,9 +155,11 @@ def test_stages_equal_jax_and_plain(form, canonical, bucket, geometry):
     kw = dict(length=112, seed=fpt.seed, canonical=canonical, **valid)
     got = torch.zeros(fpt.n_slots + 1, dtype=torch.int32)
     g, bin_start, pairs = _staged(got, words, table, rows_per_block=10,
-                                  coarse_bins=geometry, **kw)
-    if geometry < 256:
+                                  coarse_bins=GEOMETRIES[geometry][1], **kw)
+    if geometry == "many_bins":
         assert g.n_coarse > 1 and g.n_bins > g.n_coarse
+    else:    # the fine split is not run
+        assert g.n_coarse == g.n_bins == OWN_COARSE_BINS[geometry][bucket]
     want = probe.count_fp_plain(torch.zeros_like(got), words, table, k=K,
                                 **kw)
     assert torch.equal(got, want)
@@ -181,7 +189,8 @@ def test_coarse_bins_hold_their_windows(form, geometry):
     words, valid = _payload(codes, form)
     m = 130 - K + 1
     g = probe.fp_bin_geometry(fpt.n_buckets, fpt.bucket, 57, m, CPU,
-                              coarse_bins=geometry, rows_per_block=7)
+                              coarse_bins=GEOMETRIES[geometry][1],
+                              rows_per_block=7)
     buf = probe.FpScratch().buffers(CPU, g, 57 * m)
     kw = dict(length=130, k=K, seed=fpt.seed, n_buckets=fpt.n_buckets,
               coarse_shift=g.coarse_shift, rows_per_block=7, **valid)
@@ -337,7 +346,7 @@ def test_stage_wrappers_reject_what_the_kernels_do_not_take():
 def test_fp_bin_parity_of_the_plain_twins_is_zero(geometry, monkeypatch):
     """The card's per-kernel check (``fp_bin_parity``), run on CPU tensors,
     holds each plain twin against itself: every error is 0."""
-    monkeypatch.setattr(probe, "COARSE_BINS", geometry)
+    monkeypatch.setattr(probe, "COARSE_BINS", GEOMETRIES[geometry][1])
     rng = np.random.default_rng(11)
     genome, keys = _keys(rng, 3000)
     fpt = FpTable.build(keys, k=K)
@@ -346,10 +355,41 @@ def test_fp_bin_parity_of_the_plain_twins_is_zero(geometry, monkeypatch):
     words, valid = _payload(codes, "vbytes")
     table = fp_table_to_device(fpt, CPU).fp
     g = probe.fp_bin_geometry(fpt.n_buckets, fpt.bucket, 50, 96 - K + 1, CPU)
-    assert g.n_coarse == min(geometry, g.n_bins)
+    assert g.n_coarse == min(GEOMETRIES[geometry][1], g.n_bins)
     errs = probe.fp_bin_parity(words, table, length=96, k=K, seed=fpt.seed,
                                **valid)
     assert errs == dict.fromkeys(("fp_coarse_count_kernel",
                                   "fp_coarse_scatter_kernel",
                                   "fp_fine_split_kernel",
                                   "fp_bin_probe_kernel"), 0)
+
+
+# the H100's block slots for fp_bin_probe_kernel: 132 multiprocessors x 3
+# blocks at 69.6 KB of staged rows
+SLOTS = 396
+
+
+@pytest.mark.parametrize("n_bins", [1, 3, 16, 396, 4096])
+def test_probe_parts_tile_each_bin(n_bins):
+    """fp_bin_probe_kernel's work items, as its launcher cuts them
+    (fp_probe_parts, fp_probe_slice): enough parts a bin that the items fill
+    the card's block slots (one part where the bins alone fill them, the
+    E. coli table's 4,096), and each bin's parts tile its window range in
+    order with no gap or overlap, the slices within one window of each
+    other in length, for ranges of 0, 1 and odd lengths."""
+    parts = probe.fp_probe_parts(n_bins, SLOTS)
+    assert parts == {1: 396, 3: 132, 16: 25, 396: 1, 4096: 1}[n_bins]
+    assert n_bins * parts >= SLOTS and (parts == 1 or
+                                        n_bins * (parts - 1) < SLOTS)
+    lengths = [[0, 1, 7, 395, 70_001][i % 5] for i in range(n_bins)]
+    if n_bins == 1:      # the union count's batch; int32's last range
+        lengths = [4_587_520, 4_587_519, 2**31 - 1]
+    for length in lengths:
+        begin = 123_457
+        lo_hi = [probe.fp_probe_slice(begin, begin + length, p, parts)
+                 for p in range(parts)]
+        assert lo_hi[0][0] == begin and lo_hi[-1][1] == begin + length
+        assert all(a[1] == b[0] for a, b in zip(lo_hi, lo_hi[1:]))
+        sizes = [hi - lo for lo, hi in lo_hi]
+        assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+        assert sum(sizes) == length

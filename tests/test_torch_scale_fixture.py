@@ -215,3 +215,36 @@ def test_trace_summary_shares_and_gaps():
                                  "at_ms": 0.6}
     assert [g["ms"] for g in s["idle_gaps"][1:4]] == \
         pytest.approx([0.6, 0.5, 0.1])
+
+
+def test_trace_summary_ops_per_range():
+    """Each range's device operations are those it launched (the runtime
+    call's host time, by correlation id; else the event's own start),
+    nested ranges included, whenever they ran on the device."""
+    def x(name, cat, ts, dur, corr=None):
+        e = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    events = [x("identify/count", "user_annotation", 0, 1000),
+              x("identify/l2_vote", "user_annotation", 1000, 2000),
+              x("identify/l2_vote/union_count", "user_annotation", 1100, 900),
+              x("cudaLaunchKernel", "cuda_runtime", 990, 5, corr=7),
+              x("probe", "kernel", 1020, 300, corr=7),     # count's, late
+              x("cudaLaunchKernel", "cuda_runtime", 1200, 5, corr=8),
+              x("probe", "kernel", 1210, 100, corr=8),
+              x("split", "kernel", 1400, 50, corr=9),      # no launch event
+              x("Memcpy DtoH", "gpu_memcpy", 2500, 40)]
+    s = scale_parity.trace_summary(events)
+    ph = s["phases"]
+    assert ph["identify/count"]["device_op_ms"] == pytest.approx(0.3)
+    assert [(o["name"], o["calls"]) for o in
+            ph["identify/count"]["device_ops"]] == [("probe", 1)]
+    union = ph["identify/l2_vote/union_count"]
+    assert union["device_op_ms"] == pytest.approx(0.15)
+    assert [(o["name"], o["calls"], o["ms"]) for o in union["device_ops"]] \
+        == [("probe", 1, pytest.approx(0.1)), ("split", 1,
+                                               pytest.approx(0.05))]
+    assert ph["identify/l2_vote"]["device_op_ms"] == pytest.approx(0.19)
+    assert s["device_ms"] == pytest.approx(0.49)
