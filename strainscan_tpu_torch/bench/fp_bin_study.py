@@ -313,9 +313,7 @@ def probe_bytes(table, pairs, n_bins: int) -> int:
 
 def union(dev, fx: dict) -> dict:
     """count_fp, its front and each kernel at the union shape, in two
-    turns; the launches of one count_fp; torch.sort of the pairs; and, in
-    a tree whose probe has several ways to add a spread bin's hits, the
-    probe and count_fp in each."""
+    turns; the launches of one count_fp; torch.sort of the pairs."""
     import torch
 
     from strainscan_tpu_torch.bench import bound_ms
@@ -337,24 +335,10 @@ def union(dev, fx: dict) -> dict:
     keys = buf.coarse_pairs[:n].view(torch.int64)   # (bucket, fp)
     fns = {"count_fp": (None, count_fp), **front["fns"],
            "torch_sort": (None, lambda: torch.sort(keys, dim=0))}
-    adds = getattr(probe, "PROBE_ADDS", {})
-    for mode in adds if len(adds) > 1 else ():
-        def with_add(fn, mode=mode):
-            def run():
-                probe.PROBE_ADD, was = mode, probe.PROBE_ADD
-                try:
-                    fn()
-                finally:
-                    probe.PROBE_ADD = was
-            return run
-        fns[f"count_fp_{mode}"] = (None, with_add(count_fp))
-        fns[f"fp_bin_probe_kernel_{mode}"] = (
-            None, with_add(front["fns"]["fp_bin_probe_kernel"][1]))
     out: dict = {"shape": f"{BATCH} x {UNION_L} ({UNION_READ_LEN} bp, vlen)",
                  "table": [n_buckets, bucket], "n_keys": fpt.n_keys,
                  "n_bins": g.n_bins, "n_coarse": g.n_coarse,
-                 "valid_windows": n, "probe_add": getattr(probe, "PROBE_ADD",
-                                                          None)}
+                 "valid_windows": n}
     probe.reset_launches()
     count_fp()
     torch.cuda.synchronize()

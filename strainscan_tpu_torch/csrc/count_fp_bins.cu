@@ -399,31 +399,24 @@ __device__ __forceinline__ int find_lane(const uint32_t* row, int bucket,
   return -1;
 }
 
-// How a spread item adds its hits (parts > 1; one part a bin always adds
-// each hit with its own global atomic): each hit with its own global
-// atomic; one global atomic per distinct slot among a warp's hits
-// (__match_any_sync); or into a shared-memory copy of the bin's counts,
-// flushed with one global atomic per nonzero slot at the item's end.
-enum { kAddAtomic = 0, kAddWarp = 1, kAddShared = 2 };
-
 // Staged (stride > 0): a bin's rows fit shared memory at `stride` words a
 // row; an item is staged when its slice holds at least half as many
 // windows as the bin has rows.  Item i is slice i % parts of bin i / parts:
 // windows [begin + n * p / parts, begin + n * (p + 1) / parts) of the bin's
-// n (ops/probe.py::fp_probe_slice).
-template <bool kVec, int kAdd>
+// n (ops/probe.py::fp_probe_slice).  (No faster for the one-bin table of
+// the L2 union count on an H100: one global atomic per distinct slot of a
+// warp's hits; 2.2 times slower: a shared-memory copy of the bin's counts,
+// flushed at the item's end, at one block per SM instead of three.)
+template <bool kVec>
 __global__ void __launch_bounds__(kProbeThreads)
 fp_bin_probe_kernel(const uint2* __restrict__ pairs,
                     const int32_t* __restrict__ bin_start, int n_bins,
                     int parts, const uint32_t* __restrict__ fp_table,
                     int bucket, int shift, int stride,
                     int32_t* __restrict__ counts, int64_t trash) {
-  // [slice_rows, stride] rows, then with kAddShared the bin's counts
-  extern __shared__ __align__(16) uint32_t s_rows[];
+  extern __shared__ __align__(16) uint32_t s_rows[];   // [slice_rows, stride]
   __shared__ int s_miss;
   const int slice_rows = 1 << shift;
-  const int n_slots = bucket << shift;
-  int32_t* s_counts = reinterpret_cast<int32_t*>(s_rows + slice_rows * stride);
   if (threadIdx.x == 0) s_miss = 0;
   int miss = 0;
   const int64_t n_items = static_cast<int64_t>(n_bins) * parts;
@@ -437,7 +430,6 @@ fp_bin_probe_kernel(const uint2* __restrict__ pairs,
     const int64_t row0 = static_cast<int64_t>(bin) << shift;
     const uint32_t* src = fp_table + row0 * bucket;
     const bool staged = stride > 0 && 2 * (end - begin) >= slice_rows;
-    const bool shared_adds = kAdd == kAddShared && staged;
     __syncthreads();   // the previous item is done with shared memory
     if (staged) {
       if (kVec) {
@@ -452,56 +444,19 @@ fp_bin_probe_kernel(const uint2* __restrict__ pairs,
           cp_async4(s_rows + r * stride + l, src + i);
         }
       }
-      if (shared_adds)
-        for (int i = threadIdx.x; i < n_slots; i += blockDim.x)
-          s_counts[i] = 0;
       cp_async_wait_all();
     }
     __syncthreads();
-    if (kAdd == kAddWarp) {
-      // warp-uniform trips, so that every lane reaches the match
-      const int me = threadIdx.x & 31;
-      for (int i0 = begin + static_cast<int>(threadIdx.x) - me; i0 < end;
-           i0 += blockDim.x) {
-        long long slot = -1;
-        if (i0 + me < end) {
-          const uint2 p = pairs[i0 + me];
-          const int r = static_cast<int>(p.y - row0);
-          const uint32_t* row = staged ? s_rows + r * stride
-                                       : src + static_cast<int64_t>(r) * bucket;
-          const int lane = find_lane<kVec>(row, bucket, p.x);
-          if (lane < 0)
-            ++miss;
-          else
-            slot = static_cast<long long>(p.y) * bucket + lane;
-        }
-        const unsigned peers = __match_any_sync(
-            kFullMask, static_cast<unsigned long long>(slot));
-        if (slot >= 0 && me == __ffs(peers) - 1)
-          atomicAdd(counts + slot, __popc(peers));
-      }
-    } else {
-      for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
-        const uint2 p = pairs[i];
-        const int r = static_cast<int>(p.y - row0);
-        const uint32_t* row = staged ? s_rows + r * stride
-                                     : src + static_cast<int64_t>(r) * bucket;
-        const int lane = find_lane<kVec>(row, bucket, p.x);
-        if (lane < 0)
-          ++miss;
-        else if (shared_adds)
-          atomicAdd(s_counts + r * bucket + lane, 1);
-        else
-          atomicAdd(counts + static_cast<int64_t>(p.y) * bucket + lane, 1);
-      }
-    }
-    if (shared_adds) {
-      __syncthreads();
-      int32_t* dst = counts + row0 * bucket;
-      for (int i = threadIdx.x; i < n_slots; i += blockDim.x) {
-        const int c = s_counts[i];
-        if (c) atomicAdd(dst + i, c);
-      }
+    for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
+      const uint2 p = pairs[i];
+      const int r = static_cast<int>(p.y - row0);
+      const uint32_t* row = staged ? s_rows + r * stride
+                                   : src + static_cast<int64_t>(r) * bucket;
+      const int lane = find_lane<kVec>(row, bucket, p.x);
+      if (lane < 0)
+        ++miss;
+      else
+        atomicAdd(counts + static_cast<int64_t>(p.y) * bucket + lane, 1);
     }
   }
   miss = warp_sum(miss);
@@ -538,10 +493,15 @@ cudaError_t by_form(const void* codes, const void* vlen, F f) {
   }
 }
 
-// The block slots of the card for a kernel at `smem` bytes of dynamic
-// shared memory: multiprocessors x resident blocks each.
-template <class K>
-cudaError_t block_slots(K kernel, size_t smem, int device, int* slots) {
+// parts = ceil(block slots / n_bins) (ops/probe.py::fp_probe_parts): 1
+// where the bins fill the card's block slots, as on the E. coli table.
+template <bool kVec>
+cudaError_t launch_probe(const uint2* pairs, const int32_t* bin_start,
+                         int n_bins, const uint32_t* fp_table, int bucket,
+                         int shift, int stride, int32_t* counts,
+                         int64_t trash, int device, cudaStream_t stream) {
+  auto kernel = fp_bin_probe_kernel<kVec>;
+  const size_t smem = (static_cast<size_t>(stride) << shift) * 4;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
@@ -549,61 +509,15 @@ cudaError_t block_slots(K kernel, size_t smem, int device, int* slots) {
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       kProbeThreads, smem);
-  *slots = max(1, sms * per_sm);
-  return err;
-}
-
-template <bool kVec, int kAdd>
-cudaError_t launch_probe(const uint2* pairs, const int32_t* bin_start,
-                         int n_bins, int parts, const uint32_t* fp_table,
-                         int bucket, int shift, int stride, int32_t* counts,
-                         int64_t trash, int device, cudaStream_t stream) {
-  auto kernel = fp_bin_probe_kernel<kVec, kAdd>;
-  size_t smem = (static_cast<size_t>(stride) << shift) * 4;
-  if (kAdd == kAddShared && stride > 0)
-    smem += (static_cast<size_t>(bucket) << shift) * 4;
-  int slots = 0;
-  cudaError_t err = block_slots(kernel, smem, device, &slots);
   if (err != cudaSuccess) return err;
-  if (parts == 0) parts = (slots + n_bins - 1) / n_bins;   // fp_probe_parts
+  const int slots = max(1, sms * per_sm);
+  const int parts = (slots + n_bins - 1) / n_bins;
   const int64_t items = static_cast<int64_t>(n_bins) * parts;
   const int grid = items < slots ? static_cast<int>(items) : slots;
   kernel<<<grid, kProbeThreads, smem, stream>>>(
       pairs, bin_start, n_bins, parts, fp_table, bucket, shift, stride,
       counts, trash);
   return cudaGetLastError();
-}
-
-// One part a bin where the bins fill the card's block slots (the kernel
-// as it runs on the E. coli table), else `add`'s spread kernel.
-template <bool kVec>
-cudaError_t dispatch_probe(const uint2* pairs, const int32_t* bin_start,
-                           int n_bins, const uint32_t* fp_table, int bucket,
-                           int shift, int stride, int add, int32_t* counts,
-                           int64_t trash, int device, cudaStream_t stream) {
-  int slots = 0;
-  cudaError_t err = block_slots(fp_bin_probe_kernel<kVec, kAddAtomic>,
-                                (static_cast<size_t>(stride) << shift) * 4,
-                                device, &slots);
-  if (err != cudaSuccess) return err;
-  if (n_bins >= slots)
-    return launch_probe<kVec, kAddAtomic>(pairs, bin_start, n_bins, 1,
-                                          fp_table, bucket, shift, stride,
-                                          counts, trash, device, stream);
-  switch (add) {
-    case kAddWarp:
-      return launch_probe<kVec, kAddWarp>(pairs, bin_start, n_bins, 0,
-                                          fp_table, bucket, shift, stride,
-                                          counts, trash, device, stream);
-    case kAddShared:
-      return launch_probe<kVec, kAddShared>(pairs, bin_start, n_bins, 0,
-                                            fp_table, bucket, shift, stride,
-                                            counts, trash, device, stream);
-    default:
-      return launch_probe<kVec, kAddAtomic>(pairs, bin_start, n_bins, 0,
-                                            fp_table, bucket, shift, stride,
-                                            counts, trash, device, stream);
-  }
 }
 
 }  // namespace
@@ -701,11 +615,10 @@ int fp_fine_split_launch(int device, const void* in, const void* coarse_start,
 // in shared memory at `stride` words a row; 0: rows are read from global
 // memory.  vec: 16 B row reads (bucket % 4 == 0, fp_table 16 B aligned).
 // With fewer bins than the card has block slots, each bin's windows are
-// cut into parts (ops/probe.py::fp_probe_parts) whose hits add as `add`
-// says (kAddAtomic, kAddWarp, kAddShared).
+// cut into parts (ops/probe.py::fp_probe_parts), one work item each.
 int fp_bin_probe_launch(int device, const void* pairs, const void* bin_start,
                         int n_bins, const void* fp_table, int bucket,
-                        int shift, int stride, int vec, int add, void* counts,
+                        int shift, int stride, int vec, void* counts,
                         long long trash, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -715,11 +628,11 @@ int fp_bin_probe_launch(int device, const void* pairs, const void* bin_start,
   auto* cn = static_cast<int32_t*>(counts);
   auto s = static_cast<cudaStream_t>(stream);
   if (vec)
-    err = dispatch_probe<true>(pr, bs, n_bins, ft, bucket, shift, stride, add,
-                               cn, trash, device, s);
+    err = launch_probe<true>(pr, bs, n_bins, ft, bucket, shift, stride, cn,
+                             trash, device, s);
   else
-    err = dispatch_probe<false>(pr, bs, n_bins, ft, bucket, shift, stride,
-                                add, cn, trash, device, s);
+    err = launch_probe<false>(pr, bs, n_bins, ft, bucket, shift, stride, cn,
+                              trash, device, s);
   return static_cast<int>(err);
 }
 

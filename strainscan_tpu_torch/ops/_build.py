@@ -99,8 +99,8 @@ def lib() -> ctypes.CDLL:
             so.fp_fine_split_launch.restype = i
             so.fp_fine_split_launch.argtypes = [i, p, p, i, i, i, p, p, p, p]
             so.fp_bin_probe_launch.restype = i
-            so.fp_bin_probe_launch.argtypes = [i, p, p, i, p, i, i, i, i, i,
-                                               p, ll, p]
+            so.fp_bin_probe_launch.argtypes = [i, p, p, i, p, i, i, i, i, p,
+                                               ll, p]
             so.count_exact_launch.restype = i
             so.count_exact_launch.argtypes = [i, p, p, p, p, ll, i, i, i, i,
                                               i, p, u, i, ll, p, p, ll, p, p]

@@ -226,11 +226,6 @@ BLOCKS_PER_SM = 16
 # takes fewer rows when their windows would not fit
 STAGE_PAIRS = 8192
 MAX_FINE = 1024       # fine bins per coarse bin (kSplitThreads)
-# how a spread fp_bin_probe_kernel adds its hits (fp_bin_probe_launch's
-# add): one global atomic per hit, per distinct slot of a warp's hits, or
-# into a shared-memory copy of the bin's counts
-PROBE_ADDS = {"atomic": 0, "warp": 1, "shared": 2}
-PROBE_ADD = "atomic"
 # rows per chunk of the plain probe (its [rows, bucket] gather: 256 MiB at
 # bucket 64)
 PLAIN_CHUNK_PAIRS = 1 << 20
@@ -647,8 +642,7 @@ def fp_bin_probe(counts: torch.Tensor, pairs: torch.Tensor,
     _build.check(_build.lib().fp_bin_probe_launch(
         counts.device.index, pairs.data_ptr(), bin_start.data_ptr(), n_bins,
         fp_table.data_ptr(), bucket, shift, fp_bin_stride(bucket, shift, vec),
-        int(vec), PROBE_ADDS[PROBE_ADD], counts.data_ptr(),
-        counts.shape[0] - 1, _stream(counts)),
+        int(vec), counts.data_ptr(), counts.shape[0] - 1, _stream(counts)),
         "fp_bin_probe_kernel launch")
     LAUNCHES["fp_bin_probe_kernel"] += 1
     return counts
