@@ -100,8 +100,8 @@ after: the main path, each sample of phase 7's E. coli-scale identify
 (summed), for count_fp's kernels (its 28.6 M-key table has 4,096 fine bins,
 so the fine split runs in its count; the L2 union counts' tables, one bin
 each, launch none: at_union); phase 4's GPU identify for them again
-(launches_synth: its DB's table has at most 256 fine bins, each its own
-coarse bin, so no fine split runs there); the
+(launches_synth: a table of at most 256 fine bins, each its own coarse
+bin, as its DB's may be, launches no fine split); the
 exact-mode count of phase 3 for count_exact's two kernels, the study's gather
 section of phase 6 for row_gather_kernel.  probe_prep_kernel is
 the standalone parity seam of the Pallas probe_prep, on no path (its hash
@@ -830,7 +830,7 @@ def time_union(dev, tag: str) -> dict:
             probe_b, compares),
         "torch_sort": (lambda: torch.sort(keys, dim=0), 2 * pairs_b, 0)}
     out = dict(count_fp=dict(ms=min(ms["binned"]), plain_ms=min(ms["plain"])),
-               launches=launches, n_valid=n_valid)
+               launches=launches, n_valid=n_valid, hits=int(hit.sum()))
     for name, (fn, n_bytes, n_ops) in stages.items():
         if name == "fp_coarse_scatter_kernel":   # the totals it scans
             probe.fp_coarse_count(buf.coarse_count, buf.block_base, counts,
@@ -848,7 +848,8 @@ def time_union(dev, tag: str) -> dict:
         whole_b, n_valid * HASH_OPS + compares)
     log(f"[count] count_fp at the union shape: {ms['binned']} ms (plain "
         f"{ms['plain']} ms), bound {out['count_fp']['bound_ms']} ms by "
-        f"{out['count_fp']['bound_by']} ({whole_b} B); launches {launches}; "
+        f"{out['count_fp']['bound_by']} ({whole_b} B; {out['hits']} of "
+        f"{n_valid} valid windows hit); launches {launches}; "
         f"the fine split, not launched here, would take "
         f"{out['fp_fine_split_kernel']['ms']} ms against torch.sort's "
         f"{out['torch_sort']['ms']} ms [{tag}]")
@@ -1133,8 +1134,8 @@ def phase_identify(tag: str):
     finally:
         vote._count_union = count_union
     launches = dict(probe.LAUNCHES)
-    # the fine split only where a coarse bin holds several fine bins: this
-    # DB's table holds at most 256 (phase 7's launches it)
+    # the fine split only where a coarse bin holds several fine bins, which
+    # this DB's table may not have (phase 7's launches it)
     check(all(launches[n] > 0 for n in FP_KERNELS
               if n != "fp_fine_split_kernel"),
           f"main path launches {launches}")
