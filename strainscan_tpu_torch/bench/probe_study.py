@@ -11,7 +11,11 @@ fingerprint table, 256 MiB) with 2^23 windows per call:
   of the Pallas ``dma_gather_kernel``) at three (tile, nbuf) configurations
   at 512 B rows, the Pallas kernel's width, and at the production 256 B row,
   each checked over every tile against the NumPy XOR-fold oracle and timed
-  against its plain twin;
+  against its plain twin; the same kernel on a 16 MiB table (``l2_floor``:
+  the table in the L2, the floor of a walk whose reads the L2 serves) at
+  the same number of indices; where the tree plans the kernel's chunk walk
+  (``gather.plan_for``), the plan and the walk with a grid barrier per
+  chunk (``barrier_ms``), checked equal;
 * scatter: the plain scatter-add, the sort alone, and sort -> run-length
   compaction -> scatter at slot multiplicity 8 and 64, each compaction
   checked equal to the plain scatter.
@@ -21,27 +25,31 @@ both see the same table, indices and slots.  Times are CUDA-event means over
 ``REPS`` calls after a warm-up.  A check that fails raises; nothing is
 caught.
 
-    python -m strainscan_tpu_torch.bench.probe_study [--out FILE]
+    python -m strainscan_tpu_torch.bench.probe_study [gather] [scatter] [--out FILE]
+    python strainscan_tpu_torch/bench/probe_study.py gather --root DIR
+
+``--root`` names the tree of the port to import (default: the one this
+file is in), so one call can time a parent commit's kernel beside this
+one's, in separate processes: parent, change, change, parent.
 
 Prints one JSON line with the keys of the TPU study's PROBE_STUDY3.json (the
 ``xla_gather_*`` keys hold the torch gather-and-reduce baseline; the
-``dma_gather_*`` entries hold ``row_gather_kernel``), plus the card line and
-each kernel's ms beside its plain twin's; writes it to ``--out`` when given.
+``dma_gather_*`` entries hold ``row_gather_kernel``), plus the card line,
+the tree and each kernel's ms beside its plain twin's; writes it to
+``--out`` when given.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import sys
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
-
-from strainscan_tpu_torch.bench import card_line, cuda_device, cuda_ms
-from strainscan_tpu_torch.kmer.device import from_u32
-from strainscan_tpu_torch.ops.gather import row_gather_xor, row_gather_xor_plain
 
 BUCKET = 64                     # production fp row: 64 uint32 = 256 B
 N_KEYS = 28_600_000             # E. coli scale
@@ -52,6 +60,29 @@ CONFIGS = ((2048, 8), (2048, 16), (8192, 16))   # (tile, nbuf)
 MULTIPLICITIES = (8, 64)
 # rows per chunk of the host oracle (bounds its gather to 256 MiB)
 ORACLE_CHUNK_ROWS = 1 << 19
+# the table that fits the L2: the gather's floor where the L2 serves it
+L2_FLOOR_BYTES = 16 << 20
+SECTIONS = ("gather", "scatter")
+
+
+# The port is imported inside the functions, so that ``--root`` can name
+# the tree before its first import.
+def card_line() -> str:
+    from strainscan_tpu_torch.bench import card_line as line
+
+    return line()
+
+
+def cuda_device(device):
+    from strainscan_tpu_torch.bench import cuda_device as as_cuda
+
+    return as_cuda(device)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    from strainscan_tpu_torch.bench import cuda_ms as timed
+
+    return timed(fn, iters)
 
 
 def log(msg: str) -> None:
@@ -105,10 +136,13 @@ def compressed_scatter(counts: torch.Tensor,
     return counts.index_add_(0, uniq, runs.to(counts.dtype))
 
 
-def _kernel_vs_plain(table: torch.Tensor, idx: torch.Tensor, tile: int,
-                     nbuf: int, reps: int) -> Tuple[float, float]:
+def _kernel_vs_plain(table, idx, tile: int, nbuf: int,
+                     reps: int) -> Tuple[float, float]:
     """Best-of-two mean ms of the kernel and of its plain twin, timed
     plain, kernel, kernel, plain."""
+    from strainscan_tpu_torch.ops.gather import (row_gather_xor,
+                                                 row_gather_xor_plain)
+
     ms: Dict[str, list] = {"kernel": [], "plain": []}
     for order in ("plain", "kernel", "kernel", "plain"):
         fn = row_gather_xor if order == "kernel" else row_gather_xor_plain
@@ -117,10 +151,36 @@ def _kernel_vs_plain(table: torch.Tensor, idx: torch.Tensor, tile: int,
     return min(ms["kernel"]), min(ms["plain"])
 
 
+def _walk_options(table, idx, tile: int, nbuf: int, got, reps: int) -> dict:
+    """The kernel's plan, and the walk with a grid barrier per chunk (held
+    equal to ``got``), where the tree plans a chunk walk and the tensors
+    are on the card; else ``{}``."""
+    from strainscan_tpu_torch.ops import gather
+
+    if not hasattr(gather, "plan_for") or table.device.type != "cuda":
+        return {}
+    plan = gather.plan_for(table, idx, tile=tile, nbuf=nbuf)
+    barrier = dataclasses.replace(plan, barrier=True)
+
+    def run():
+        return gather.launch(table, idx, tile=tile, nbuf=nbuf, plan=barrier)
+
+    if not torch.equal(run(), got):
+        raise RuntimeError(f"the barrier walk != the kernel (tile={tile}, "
+                           f"nbuf={nbuf})")
+    return {"plan": dataclasses.asdict(plan),
+            "rounds": plan.rounds(idx.shape[0] // tile),
+            "barrier_ms": cuda_ms(run, reps)}
+
+
 def gather_section(device, n_keys: int = N_KEYS, windows: int = W,
                    reps: int = REPS):
     """The gather half of the study.  Returns ``(results, rng, n_slots)``:
     the rng continues into :func:`scatter_section`, as in the TPU study."""
+    from strainscan_tpu_torch.kmer.device import from_u32
+    from strainscan_tpu_torch.ops.gather import (row_gather_xor,
+                                                 row_gather_xor_plain)
+
     dev = cuda_device(device)
     rng = np.random.default_rng(SEED)
     n_buckets = n_buckets_for(n_keys)
@@ -130,7 +190,7 @@ def gather_section(device, n_keys: int = N_KEYS, windows: int = W,
     log(f"table {n_buckets} x {BUCKET} ({table_np.nbytes} B), {windows} "
         f"windows")
     res: dict = {"device": torch.cuda.get_device_name(dev), "card": card_line(),
-                 "n_keys": n_keys, "windows": windows,
+                 "tree": _tree(), "n_keys": n_keys, "windows": windows,
                  "table_MB": table_np.nbytes / 1e6}
     table = from_u32(table_np).to(dev)
     idx = torch.from_numpy(idx_np).to(dev)
@@ -161,13 +221,55 @@ def gather_section(device, n_keys: int = N_KEYS, windows: int = W,
                 raise RuntimeError(f"row_gather_kernel != the NumPy oracle "
                                    f"({name}, tile={tile}, nbuf={nbuf})")
             ms, plain_ms = _kernel_vs_plain(t, i, tile, nbuf, reps)
-            res[name][f"tile{tile}_nbuf{nbuf}"] = {
+            r = res[name][f"tile{tile}_nbuf{nbuf}"] = {
                 "Mrows_s": windows / ms / 1e3, "bit_exact": True,
-                "ms": ms, "plain_ms": plain_ms}
+                "ms": ms, "plain_ms": plain_ms,
+                **_walk_options(t, i, tile, nbuf, got, reps)}
             log(f"row_gather_kernel {name[-4:]} tile={tile} nbuf={nbuf}: "
                 f"{ms} ms ({windows / ms / 1e3} M rows/s) vs plain "
-                f"{plain_ms} ms; equal to the oracle over every tile")
+                f"{plain_ms} ms; equal to the oracle over every tile; "
+                f"barrier walk {r.get('barrier_ms')} ms, plan "
+                f"{r.get('plan')}, {r.get('rounds')} rounds")
+    res["l2_floor"] = l2_floor(dev, windows, reps)
     return res, rng, n_buckets * BUCKET
+
+
+def l2_floor(dev, windows: int = W, reps: int = REPS) -> dict:
+    """ms of ``row_gather_kernel`` on a table of ``L2_FLOOR_BYTES`` (which
+    the L2 holds) at ``windows`` indices, each width and configuration held
+    equal to the plain twin."""
+    from strainscan_tpu_torch.ops.gather import (row_gather_xor,
+                                                 row_gather_xor_plain)
+
+    rng = np.random.default_rng(SEED + 1)
+    out: dict = {}
+    for width, words in (("512B", 2 * BUCKET), ("256B", BUCKET)):
+        rows = L2_FLOOR_BYTES // (words * 4)
+        table = torch.from_numpy(rng.integers(
+            0, 1 << 32, size=(rows, words), dtype=np.uint32).view(
+                np.int32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, rows, size=windows,
+                                            dtype=np.int32)).to(dev)
+        out[width] = {}
+        for tile, nbuf in CONFIGS:
+            if not torch.equal(
+                    row_gather_xor(table, idx, tile=tile, nbuf=nbuf),
+                    row_gather_xor_plain(table, idx, tile=tile, nbuf=nbuf)):
+                raise RuntimeError(f"row_gather_kernel != plain on the L2 "
+                                   f"table ({width}, {tile}, {nbuf})")
+            out[width][f"tile{tile}_nbuf{nbuf}"] = cuda_ms(
+                lambda: row_gather_xor(table, idx, tile=tile, nbuf=nbuf),
+                reps)
+    log(f"row_gather_kernel on a {L2_FLOOR_BYTES} B table, {windows} "
+        f"indices: {out} ms")
+    return out
+
+
+def _tree() -> str:
+    import strainscan_tpu_torch
+
+    return os.path.dirname(os.path.dirname(os.path.abspath(
+        strainscan_tpu_torch.__file__)))
 
 
 def scatter_section(device, rng: np.random.Generator, n_slots: int,
@@ -206,19 +308,32 @@ def scatter_section(device, rng: np.random.Generator, n_slots: int,
 
 
 def run(device="cuda", n_keys: int = N_KEYS, windows: int = W,
-        reps: int = REPS) -> dict:
-    """The whole study on one CUDA device."""
+        reps: int = REPS, sections=SECTIONS) -> dict:
+    """The study's sections on one CUDA device (the scatter needs the
+    gather's rng, so it runs the gather too)."""
     res, rng, n_slots = gather_section(device, n_keys, windows, reps)
-    res.update(scatter_section(device, rng, n_slots, windows, reps))
+    if "scatter" in sections:
+        res.update(scatter_section(device, rng, n_slots, windows, reps))
     return res
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("sections", nargs="*", choices=SECTIONS,
+                    help="default: both")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--root", help="the tree of the port to import "
+                    "(default: the one this file is in)")
     ap.add_argument("--out", help="also write the JSON to this file")
     args = ap.parse_args(argv)
-    res = run(args.device)
+    root = os.path.abspath(args.root or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    if sys.path and os.path.abspath(sys.path[0]) == os.path.dirname(
+            os.path.abspath(__file__)):
+        sys.path[0] = root   # run as a file: import the tree, not bench/
+    else:
+        sys.path.insert(0, root)
+    res = run(args.device, sections=args.sections or SECTIONS)
     line = json.dumps(res)
     if args.out:
         with open(args.out, "w") as f:

@@ -417,22 +417,44 @@ def test_count_exact_kernel_equals_plain(dev, form, canonical):
     assert int(c1[:-1].sum()) > 100_000
 
 
-@pytest.mark.parametrize("roww", [64, 128])
-@pytest.mark.parametrize("tile,nbuf", [(2048, 8), (2048, 16), (8192, 16),
-                                       (32, 32), (16384, 1)])
-def test_row_gather_kernel_equals_plain(dev, roww, tile, nbuf):
-    """Shared memory above the default 48 KiB at tile 16384; a tail of
-    indices past the last whole tile; repeated and out-of-range rows."""
+# (roww, tile, nbuf, chunk_rows, barrier): the study's configurations and
+# odd ones at the plan's chunks; many chunks with a ragged last one; the
+# exact study's 96 B rows; tiles at and near MAX_TILE (entries in pieces);
+# a grid barrier per chunk
+GATHER_CASES = [(roww, tile, nbuf, None, False) for roww in (64, 128)
+                for tile, nbuf in ((2048, 8), (2048, 16), (8192, 16), (32, 32),
+                                   (16384, 1))] + [
+    (128, 2048, 16, 300, False), (64, 8192, 16, 1000, False),
+    (24, 2048, 16, None, False), (24, 2048, 8, 300, False),
+    (128, gather.MAX_TILE, 32, None, False), (64, 57344, 1, 500, False),
+    (128, 2048, 16, 300, True), (24, 8192, 16, None, True)]
+
+
+@pytest.mark.parametrize("roww,tile,nbuf,chunk_rows,barrier", GATHER_CASES)
+def test_row_gather_kernel_equals_plain(dev, roww, tile, nbuf, chunk_rows,
+                                        barrier):
+    """One launch per call; shared memory above the default 48 KiB; a tail
+    of indices past the last whole tile; repeated and out-of-range rows."""
     rng = np.random.default_rng(tile + nbuf + roww)
     table = torch.from_numpy(rng.integers(0, 1 << 32, size=(4099, roww),
                                           dtype=np.uint32).view(np.int32))
-    idx = rng.integers(0, 4099, size=3 * 16384 + 77, dtype=np.int32)
+    idx = rng.integers(0, 4099, size=max(3 * 16384, 2 * tile) + 77,
+                       dtype=np.int32)
     idx[::5] = idx[0]
     idx[1::997] = -3
     idx[2::991] = 4099
     table, idx = table.to(dev), torch.from_numpy(idx).to(dev)
+    plan = gather.plan_for(table, idx, tile=tile, nbuf=nbuf,
+                           chunk_rows=chunk_rows)
+    if chunk_rows is not None:
+        assert plan.n_chunks == -(-4099 // chunk_rows) > 1
     before = probe.LAUNCHES["row_gather_kernel"]
-    got = gather.row_gather_xor(table, idx, tile=tile, nbuf=nbuf)
+    if barrier:
+        got = gather.launch(table, idx, tile=tile, nbuf=nbuf,
+                            plan=dataclasses.replace(plan, barrier=True))
+    else:
+        got = gather.row_gather_xor(table, idx, tile=tile, nbuf=nbuf,
+                                    chunk_rows=chunk_rows)
     want = gather.row_gather_xor_plain(table, idx, tile=tile, nbuf=nbuf)
     torch.cuda.synchronize()
     assert probe.LAUNCHES["row_gather_kernel"] == before + 1
