@@ -74,11 +74,13 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    byte-identical reports too.
 6. The measurement path.  row_gather_kernel (the port of the Pallas
    dma_gather_kernel of benchmarks/probe_bench3.py) bit-exact against its
-   plain twin at row widths 64 and 128 and (tile, nbuf) in {(2048, 8),
-   (2048, 16), (8192, 16)}, with indices past the last whole tile; the
-   gather section of bench.probe_study at full size (a 256 MiB table, 2^23
-   indices; every tile of every configuration equal to the NumPy oracle,
-   the kernel timed against its plain twin); entry("cuda") equal to
+   plain twin at row widths 64, 128 and 24 and (tile, nbuf) in {(2048, 8),
+   (2048, 16), (8192, 16)}, with indices past the last whole tile, at the
+   plan's chunks and (widths 128 and 24) at chunks forced small, each plan
+   logged; the gather section of bench.probe_study at full size (a 256 MiB
+   table, 2^23 indices; every tile of every configuration equal to the
+   NumPy oracle, the kernel timed against its plain twin, and again on a
+   16 MiB table, its L2-served floor); entry("cuda") equal to
    entry("cpu"); bench.count's ecoli tier with one rep (its
    triple-stream and host-oracle checks held); and the trace hook: a build
    and a GPU identify through the CLI with STRAINSCAN_TRACE_DIR set write
@@ -121,8 +123,8 @@ its path and per sample, max_abs_err, ms, plain_ms, bound_ms, bound_by and
 library_ms: index_add_ for exact_apply_kernel, torch.sort for
 fp_fine_split_kernel, else null, as no single PyTorch call computes the
 others; fp_bin_probe_kernel and fp_fine_split_kernel also at_union: ms,
-bound_ms and their launches in phase 4's L2 union counts), and as the last
-line
+bound_ms and their launches in phase 4's L2 union counts; row_gather_kernel
+also l2_floor_ms, its time on a 16 MiB table), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero with no result when
 ``torch.cuda.is_available()`` is false or the port is not beside the script.
 Writes its fixtures under .smoke/ and removes them at the end.
@@ -162,6 +164,8 @@ GPU = "cuda"   # the --device of the GPU runs
 # phase 6: the row gather's parity shapes (a tail past the last whole tile)
 # and the study configuration the kernels line reports
 GATHER_ROWS, GATHER_W = 1 << 18, (1 << 20) + 1000
+# a chunk forced small: 27 chunks of the parity table, the last ragged
+GATHER_SMALL_CHUNK = 10_000
 STUDY_CONFIG = "tile2048_nbuf16"
 # the binned count_fp: its kernels in launch order
 FP_KERNELS = ("fp_coarse_count_kernel", "fp_coarse_scatter_kernel",
@@ -1352,25 +1356,41 @@ def phase_measure(dev, tag: str) -> dict:
     t0 = time.perf_counter()
     rng = np.random.default_rng(13)
     err = 0
-    for roww in (64, 128):
-        table = torch.from_numpy(rng.integers(
-            0, 1 << 32, size=(GATHER_ROWS, roww), dtype=np.uint32)
-            .view(np.int32)).to(dev)
-        idx = torch.from_numpy(rng.integers(0, GATHER_ROWS, size=GATHER_W,
-                                            dtype=np.int32)).to(dev)
-        for tile, nbuf in probe_study.CONFIGS:
-            got = gather.row_gather_xor(table, idx, tile=tile, nbuf=nbuf)
-            want = gather.row_gather_xor_plain(table, idx, tile=tile,
-                                               nbuf=nbuf)
-            sync(dev)
-            check(torch.equal(got, want), f"row_gather_kernel != plain "
-                  f"(roww={roww}, tile={tile}, nbuf={nbuf})")
-            err = max(err, int((got.to(torch.int64) - want.to(torch.int64))
-                               .abs().max()))
+    # the study's widths and configurations at the plan's chunks, the exact
+    # study's 96 B rows, and chunks forced small (many, the last ragged)
+    cases = [(roww, cfg, None) for roww in (64, 128, 24)
+             for cfg in probe_study.CONFIGS] + [
+        (roww, cfg, GATHER_SMALL_CHUNK) for roww in (128, 24)
+        for cfg in probe_study.CONFIGS]
+    tables = {}
+    for roww, (tile, nbuf), chunk_rows in cases:
+        if roww not in tables:
+            tables[roww] = (
+                torch.from_numpy(rng.integers(
+                    0, 1 << 32, size=(GATHER_ROWS, roww), dtype=np.uint32)
+                    .view(np.int32)).to(dev),
+                torch.from_numpy(rng.integers(0, GATHER_ROWS, size=GATHER_W,
+                                              dtype=np.int32)).to(dev))
+        table, idx = tables[roww]
+        plan = gather.plan_for(table, idx, tile=tile, nbuf=nbuf,
+                               chunk_rows=chunk_rows)
+        got = gather.row_gather_xor(table, idx, tile=tile, nbuf=nbuf,
+                                    chunk_rows=chunk_rows)
+        want = gather.row_gather_xor_plain(table, idx, tile=tile, nbuf=nbuf)
+        sync(dev)
+        check(torch.equal(got, want), f"row_gather_kernel != plain "
+              f"(roww={roww}, tile={tile}, nbuf={nbuf}, plan {plan})")
+        err = max(err, int((got.to(torch.int64) - want.to(torch.int64))
+                           .abs().max()))
+        log(f"[measure] row_gather_kernel plan at roww={roww}, tile={tile}, "
+            f"nbuf={nbuf}: {plan.n_chunks} chunks of {plan.chunk_rows} rows, "
+            f"k={plan.k}, grid {plan.grid}, {plan.smem} B shared, "
+            f"{plan.rounds(GATHER_W // tile)} rounds, no barrier")
     secs["parity"] = time.perf_counter() - t0
     log(f"[measure] row_gather_kernel bit-exact against its plain twin at "
-        f"row widths 64 and 128, (tile, nbuf) in {probe_study.CONFIGS}, "
-        f"{GATHER_W} indices into {GATHER_ROWS} rows [{tag}]")
+        f"row widths 64, 128 and 24, (tile, nbuf) in {probe_study.CONFIGS}, "
+        f"{GATHER_W} indices into {GATHER_ROWS} rows, at the plan's chunks "
+        f"and at {GATHER_SMALL_CHUNK} rows a chunk [{tag}]")
 
     probe.reset_launches()
     t0 = time.perf_counter()
@@ -1387,7 +1407,9 @@ def phase_measure(dev, tag: str) -> dict:
         for cfg, r in study[f"dma_gather_Mrows_s_{width}"].items():
             log(f"[measure] row_gather_kernel {width} {cfg}: {r['ms']} ms vs "
                 f"plain {r['plain_ms']} ms per call, {r['Mrows_s']} M rows/s; "
-                f"every tile equal to the NumPy oracle [{tag}]")
+                f"every tile equal to the NumPy oracle; on a 16 MiB table "
+                f"{study['l2_floor'][width][cfg]} ms; plan {r['plan']}, "
+                f"{r['rounds']} rounds [{tag}]")
 
     t0 = time.perf_counter()
     fn, args = entry.entry(dev)
@@ -1419,7 +1441,8 @@ def phase_measure(dev, tag: str) -> dict:
         f"({n_bytes} B: {study['rows_touched_512B']} distinct 512 B rows, "
         f"the indices, the folds) [{tag}]")
     return dict(launches=launches, err=err, ms=main512["ms"],
-                plain_ms=main512["plain_ms"], bound=bound)
+                plain_ms=main512["plain_ms"], bound=bound,
+                l2_floor_ms=study["l2_floor"]["512B"][STUDY_CONFIG])
 
 
 def phase_trace(tag: str, ident: dict) -> None:
@@ -1672,7 +1695,7 @@ def run(dev, tag: str) -> list:
         "max_abs_err": measure["err"],
         "ms": measure["ms"], "plain_ms": measure["plain_ms"],
         "bound_ms": measure["bound"][0], "bound_by": measure["bound"][1],
-        "library_ms": None})
+        "library_ms": None, "l2_floor_ms": measure["l2_floor_ms"]})
     designs = {length: {name: min(v) for name, v in d["ms"].items()}
                for length, d in fp["designs"].items()}
     log(f"[count] count_fp per batch of {BATCH} reads, ms by design and L: "

@@ -13,9 +13,8 @@ fingerprint table, 256 MiB) with 2^23 windows per call:
   each checked over every tile against the NumPy XOR-fold oracle and timed
   against its plain twin; the same kernel on a 16 MiB table (``l2_floor``:
   the table in the L2, the floor of a walk whose reads the L2 serves) at
-  the same number of indices; where the tree plans the kernel's chunk walk
-  (``gather.plan_for``), the plan and the walk with a grid barrier per
-  chunk (``barrier_ms``), checked equal;
+  the same number of indices; and where the tree plans the kernel's chunk
+  walk (``gather.plan_for``), the plan;
 * scatter: the plain scatter-add, the sort alone, and sort -> run-length
   compaction -> scatter at slot multiplicity 8 and 64, each compaction
   checked equal to the plain scatter.
@@ -151,26 +150,16 @@ def _kernel_vs_plain(table, idx, tile: int, nbuf: int,
     return min(ms["kernel"]), min(ms["plain"])
 
 
-def _walk_options(table, idx, tile: int, nbuf: int, got, reps: int) -> dict:
-    """The kernel's plan, and the walk with a grid barrier per chunk (held
-    equal to ``got``), where the tree plans a chunk walk and the tensors
-    are on the card; else ``{}``."""
+def _plan(table, idx, tile: int, nbuf: int) -> dict:
+    """The kernel's plan for these arguments, where the tree plans a chunk
+    walk and the tensors are on the card; else ``{}``."""
     from strainscan_tpu_torch.ops import gather
 
     if not hasattr(gather, "plan_for") or table.device.type != "cuda":
         return {}
     plan = gather.plan_for(table, idx, tile=tile, nbuf=nbuf)
-    barrier = dataclasses.replace(plan, barrier=True)
-
-    def run():
-        return gather.launch(table, idx, tile=tile, nbuf=nbuf, plan=barrier)
-
-    if not torch.equal(run(), got):
-        raise RuntimeError(f"the barrier walk != the kernel (tile={tile}, "
-                           f"nbuf={nbuf})")
     return {"plan": dataclasses.asdict(plan),
-            "rounds": plan.rounds(idx.shape[0] // tile),
-            "barrier_ms": cuda_ms(run, reps)}
+            "rounds": plan.rounds(idx.shape[0] // tile)}
 
 
 def gather_section(device, n_keys: int = N_KEYS, windows: int = W,
@@ -224,11 +213,10 @@ def gather_section(device, n_keys: int = N_KEYS, windows: int = W,
             r = res[name][f"tile{tile}_nbuf{nbuf}"] = {
                 "Mrows_s": windows / ms / 1e3, "bit_exact": True,
                 "ms": ms, "plain_ms": plain_ms,
-                **_walk_options(t, i, tile, nbuf, got, reps)}
+                **_plan(t, i, tile, nbuf)}
             log(f"row_gather_kernel {name[-4:]} tile={tile} nbuf={nbuf}: "
                 f"{ms} ms ({windows / ms / 1e3} M rows/s) vs plain "
-                f"{plain_ms} ms; equal to the oracle over every tile; "
-                f"barrier walk {r.get('barrier_ms')} ms, plan "
+                f"{plain_ms} ms; equal to the oracle over every tile; plan "
                 f"{r.get('plan')}, {r.get('rounds')} rounds")
     res["l2_floor"] = l2_floor(dev, windows, reps)
     return res, rng, n_buckets * BUCKET

@@ -52,19 +52,16 @@
 //   windows.  The wrapper's plan picks k, the piece and the window.
 // * An index outside [0, n_rows) contributes nothing and reads nothing; the
 //   plain twin does the same.
-// * With `barrier` set the launch is cooperative and the grid waits for
-//   every block at the end of each chunk; without it the blocks stay in step
-//   only because their work per chunk is alike.
+// * Nothing holds the blocks in step but their like work per chunk: a grid
+//   barrier at the end of each chunk (a cooperative launch) was 11-23 %
+//   slower on an H100 (PERF.md, PR 9).
 //
 // The entry point launches on the caller's stream, does not synchronise, and
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
-#include <cooperative_groups.h>
 #include <cstdint>
 
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -168,7 +165,6 @@ __device__ __forceinline__ void fold_segment(
   }
 }
 
-template <bool kBarrier>
 __global__ void __launch_bounds__(1024)
     row_gather_kernel(const uint4* __restrict__ table,
                       const int32_t* __restrict__ idx, const Plan P,
@@ -191,7 +187,6 @@ __global__ void __launch_bounds__(1024)
   const int64_t rounds = (P.n_tiles + per_round - 1) / per_round;
   const int n_pieces = (P.k * per_slot + P.piece - 1) / P.piece;
   const int n_wins = (P.row_vecs + P.win - 1) / P.win;
-  // every block runs the same loops (a grid barrier needs all of them)
   for (int64_t r = 0; r < rounds; ++r) {
     const int64_t t0 = r * per_round + static_cast<int64_t>(blockIdx.x) * P.k;
     const int64_t left = P.n_tiles - t0;
@@ -213,7 +208,6 @@ __global__ void __launch_bounds__(1024)
         for (int c = 0; c < P.n_chunks; ++c) {
           fold_segment(table, P.row_vecs, w0, wn, P.win, rows, js,
                        c ? cur[c - 1] : 0, cur[c], lane, acc);
-          if constexpr (kBarrier) cg::this_grid().sync();
         }
       }
       for (int j = 0; j < kk; ++j) {
@@ -224,14 +218,14 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <bool kBarrier>
+// the plan's grid, unless fewer blocks are resident (the tiles are walked
+// with the grid's own stride, so any grid covers them)
 cudaError_t launch(const uint4* table, const int32_t* idx, const Plan& P,
                    int grid, int smem, uint4* out, int device,
                    cudaStream_t stream) {
-  auto kernel = row_gather_kernel<kBarrier>;
   cudaError_t err = cudaSuccess;
   if (smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(kernel,
+    err = cudaFuncSetAttribute(row_gather_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
@@ -240,19 +234,11 @@ cudaError_t launch(const uint4* table, const int32_t* idx, const Plan& P,
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, row_gather_kernel, threads, smem);
   if (err != cudaSuccess) return err;
-  // the plan's grid, unless fewer blocks are resident (the tiles are walked
-  // with the grid's own stride, so any grid covers them)
   if (per_sm > 0 && grid > sms * per_sm) grid = sms * per_sm;
-  if (kBarrier) {
-    void* args[] = {(void*)&table, (void*)&idx, (void*)&P, (void*)&out};
-    return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                       dim3(grid), dim3(threads), args, smem,
-                                       stream);
-  }
-  kernel<<<grid, threads, smem, stream>>>(table, idx, P, out);
+  row_gather_kernel<<<grid, threads, smem, stream>>>(table, idx, P, out);
   return cudaGetLastError();
 }
 
@@ -288,20 +274,17 @@ int row_gather_device(int device, long long* props) {
 int row_gather_launch(int device, const void* table, long long n_rows,
                       int row_words, const void* idx, long long n_tiles,
                       int tile, int nbuf, int chunk_rows, int n_chunks, int k,
-                      int piece, int win, int grid, int smem, int barrier,
-                      void* out, void* stream) {
+                      int piece, int win, int grid, int smem, void* out,
+                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
   const Plan P{n_rows, row_words / 4, n_tiles, tile, nbuf, chunk_rows,
                n_chunks, k, piece, win};
-  const auto* t = static_cast<const uint4*>(table);
-  const auto* i = static_cast<const int32_t*>(idx);
-  auto* o = static_cast<uint4*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  err = barrier ? launch<true>(t, i, P, grid, smem, o, device, st)
-                : launch<false>(t, i, P, grid, smem, o, device, st);
-  return static_cast<int>(err);
+  return static_cast<int>(launch(
+      static_cast<const uint4*>(table), static_cast<const int32_t*>(idx), P,
+      grid, smem, static_cast<uint4*>(out), device,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

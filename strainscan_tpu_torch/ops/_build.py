@@ -111,7 +111,7 @@ def lib() -> ctypes.CDLL:
             so.exact_apply_launch.argtypes = [i, p, p, ll, i, p, ll, ll, p]
             so.row_gather_launch.restype = i
             so.row_gather_launch.argtypes = [i, p, ll, i, p, ll, i, i, i, i,
-                                             i, i, i, i, i, i, p, p]
+                                             i, i, i, i, i, p, p]
             so.row_gather_device.restype = i
             so.row_gather_device.argtypes = [i, p]
             so.cuda_error_string.restype = ctypes.c_char_p

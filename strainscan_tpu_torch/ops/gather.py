@@ -41,10 +41,11 @@ PLAIN_CHUNK_ROWS = 1 << 20
 MAX_NBUF = 32                      # warps per block
 MAX_TILE = 232_448 // 4            # the tile's int32 indices in shared memory
 
-# the plan: warps per multiprocessor it aims for (blocks of nbuf warps), the
-# most tiles a block takes per round (the kernel keeps a tile's number in a
-# byte), bytes per sorted entry (an int32 row and that byte)
-TARGET_WARPS = 16
+# the plan: 16 B lane loads a multiprocessor should keep in flight (16
+# warps of 512 B rows, kUnroll 8 rows each), the most tiles a block takes per
+# round (the kernel keeps a tile's number in a byte), bytes per sorted entry
+# (an int32 row and that byte)
+LANE_LOADS_SM = 16 * 32 * 8
 MAX_K = 128
 ENTRY_BYTES = 5
 
@@ -80,7 +81,6 @@ class GatherPlan:
     win: int
     grid: int
     smem: int
-    barrier: bool = False
 
     def tiles(self, n_tiles: int, block: int, rnd: int) -> range:
         """The tiles block ``block`` folds in round ``rnd``."""
@@ -100,6 +100,13 @@ def chunk_budget(l2_bytes: int) -> int:
     return b
 
 
+def target_warps(roww: int) -> int:
+    """Warps per multiprocessor for rows of ``roww`` words: a warp of 16 B
+    lanes loads ``min(roww // 4, 32)`` lanes of each row, so narrow rows
+    need more warps for the same loads in flight (at most 64)."""
+    return min(64, LANE_LOADS_SM // (8 * min(roww // 4, 32)))
+
+
 def _up16(n: int) -> int:
     return -(-n // 16) * 16
 
@@ -111,7 +118,7 @@ def gather_plan(n_rows: int, roww: int, n_tiles: int, tile: int, nbuf: int,
     ``n_tiles`` tiles of ``tile`` indices in ``nbuf`` slots, on ``dev``.
 
     Blocks of nbuf warps, as many per multiprocessor as make about
-    ``TARGET_WARPS`` warps; each block's share of shared memory holds per
+    :func:`target_warps` warps; each block's share of shared memory holds per
     warp the chunk counts, k tiles' accumulators and the entries it sorts.
     k is as large as the share allows (at most ``MAX_K``, and no larger than
     spreads the tiles over every block); where one tile's entries do not
@@ -121,7 +128,7 @@ def gather_plan(n_rows: int, roww: int, n_tiles: int, tile: int, nbuf: int,
     chunks that their counts would take over a quarter of the share.
     """
     row_vecs, per_slot = roww // 4, tile // nbuf
-    want = max(1, TARGET_WARPS // nbuf)            # blocks per multiprocessor
+    want = min(dev.blocks_sm, max(1, target_warps(roww) // nbuf))
     share = min(dev.smem_block, dev.smem_sm // want - dev.smem_reserved)
     share -= share % 16
     max_chunks = max(1, share // 4 // (4 * nbuf))
@@ -243,8 +250,7 @@ def launch(table: torch.Tensor, idx: torch.Tensor, *, tile: int, nbuf: int,
     _build.check(_build.lib().row_gather_launch(
         table.device.index, table.data_ptr(), n_rows, roww, idx.data_ptr(),
         n_tiles, tile, nbuf, plan.chunk_rows, plan.n_chunks, plan.k,
-        plan.piece, plan.win, plan.grid, plan.smem, int(plan.barrier),
-        out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream),
+        plan.piece, plan.win, plan.grid, plan.smem, out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream),
         "row_gather_kernel launch")
     LAUNCHES["row_gather_kernel"] += 1
     return out

@@ -417,22 +417,19 @@ def test_count_exact_kernel_equals_plain(dev, form, canonical):
     assert int(c1[:-1].sum()) > 100_000
 
 
-# (roww, tile, nbuf, chunk_rows, barrier): the study's configurations and
-# odd ones at the plan's chunks; many chunks with a ragged last one; the
-# exact study's 96 B rows; tiles at and near MAX_TILE (entries in pieces);
-# a grid barrier per chunk
-GATHER_CASES = [(roww, tile, nbuf, None, False) for roww in (64, 128)
+# (roww, tile, nbuf, chunk_rows): the study's configurations and odd ones
+# at the plan's chunks; many chunks with a ragged last one; the exact
+# study's 96 B rows; tiles at and near MAX_TILE (entries in pieces)
+GATHER_CASES = [(roww, tile, nbuf, None) for roww in (64, 128)
                 for tile, nbuf in ((2048, 8), (2048, 16), (8192, 16), (32, 32),
                                    (16384, 1))] + [
-    (128, 2048, 16, 300, False), (64, 8192, 16, 1000, False),
-    (24, 2048, 16, None, False), (24, 2048, 8, 300, False),
-    (128, gather.MAX_TILE, 32, None, False), (64, 57344, 1, 500, False),
-    (128, 2048, 16, 300, True), (24, 8192, 16, None, True)]
+    (128, 2048, 16, 300), (64, 8192, 16, 1000), (128, 16384, 1, 300),
+    (24, 2048, 16, None), (24, 8192, 16, None), (24, 2048, 8, 300),
+    (128, gather.MAX_TILE, 32, None), (64, 57344, 1, 500)]
 
 
-@pytest.mark.parametrize("roww,tile,nbuf,chunk_rows,barrier", GATHER_CASES)
-def test_row_gather_kernel_equals_plain(dev, roww, tile, nbuf, chunk_rows,
-                                        barrier):
+@pytest.mark.parametrize("roww,tile,nbuf,chunk_rows", GATHER_CASES)
+def test_row_gather_kernel_equals_plain(dev, roww, tile, nbuf, chunk_rows):
     """One launch per call; shared memory above the default 48 KiB; a tail
     of indices past the last whole tile; repeated and out-of-range rows."""
     rng = np.random.default_rng(tile + nbuf + roww)
@@ -449,12 +446,8 @@ def test_row_gather_kernel_equals_plain(dev, roww, tile, nbuf, chunk_rows,
     if chunk_rows is not None:
         assert plan.n_chunks == -(-4099 // chunk_rows) > 1
     before = probe.LAUNCHES["row_gather_kernel"]
-    if barrier:
-        got = gather.launch(table, idx, tile=tile, nbuf=nbuf,
-                            plan=dataclasses.replace(plan, barrier=True))
-    else:
-        got = gather.row_gather_xor(table, idx, tile=tile, nbuf=nbuf,
-                                    chunk_rows=chunk_rows)
+    got = gather.row_gather_xor(table, idx, tile=tile, nbuf=nbuf,
+                                chunk_rows=chunk_rows)
     want = gather.row_gather_xor_plain(table, idx, tile=tile, nbuf=nbuf)
     torch.cuda.synchronize()
     assert probe.LAUNCHES["row_gather_kernel"] == before + 1

@@ -140,3 +140,96 @@ def test_wrapper_rejects_bad_arguments():
     with pytest.raises(ValueError, match="device"):
         gather.row_gather_xor(table.to("meta"), idx.to("meta"), tile=16,
                               nbuf=8)
+
+
+# ------------------------------------------------------------- the plan
+H100 = gather.H100
+NBUFS = [1, 2, 4, 8, 16, 32]
+
+
+def _tiles(nbuf):
+    """Accepted tiles of ``nbuf`` slots: the least, odd multiples, the
+    study's, and the largest (MAX_TILE or just under it)."""
+    top = gather.MAX_TILE // nbuf * nbuf
+    return sorted({nbuf, 2 * nbuf, 3 * nbuf, 96 * nbuf, 2048, 8192, 16384,
+                   top - nbuf, top} - {0})
+
+
+def _layout_bytes(plan, nbuf):
+    """Shared memory of the kernel's layout: accumulators, chunk counts
+    (padded to 16 B), sorted rows and their tile bytes."""
+    return nbuf * (plan.k * plan.win * 16 + -(-plan.n_chunks // 4) * 16
+                   + plan.piece * gather.ENTRY_BYTES)
+
+
+@pytest.mark.parametrize("nbuf", NBUFS)
+@pytest.mark.parametrize("roww", [24, 64, 128])
+def test_plan_fits_and_covers_every_tile(roww, nbuf):
+    """Every accepted tile at this width: k >= 1, shared memory within the
+    device's limits, chunks of a power-of-two budget within a third of the
+    L2, and the rounds cover each tile once."""
+    budget = gather.chunk_budget(H100.l2_bytes)
+    assert budget == 16 << 20
+    for tile in _tiles(nbuf):
+        assert tile % nbuf == 0 and tile <= gather.MAX_TILE
+        for n_rows, windows in (((256 << 20) // (roww * 4), 1 << 23),
+                                (4099, 3 * tile + 77), (1, tile)):
+            n_tiles = windows // tile
+            plan = gather.gather_plan(n_rows, roww, n_tiles, tile, nbuf, H100)
+            per_slot = tile // nbuf
+            assert 1 <= plan.k <= gather.MAX_K
+            assert plan.win == roww // 4
+            assert plan.piece >= min(32, plan.k * per_slot)
+            assert plan.piece <= plan.k * per_slot or plan.k == 1
+            if plan.piece < plan.k * per_slot:   # entries go in pieces
+                assert plan.k == 1
+            assert _layout_bytes(plan, nbuf) <= plan.smem <= H100.smem_block
+            assert plan.smem + H100.smem_reserved <= H100.smem_sm
+            assert budget <= H100.l2_bytes // 3 < 2 * budget
+            assert plan.chunk_rows == min(n_rows, budget // (roww * 4))
+            assert plan.n_chunks == -(-n_rows // plan.chunk_rows)
+            per_sm = min(H100.blocks_sm, H100.threads_sm // (32 * nbuf),
+                         H100.smem_sm // (plan.smem + H100.smem_reserved))
+            assert 1 <= plan.grid <= H100.sms * per_sm
+            covered = [t for r in range(plan.rounds(n_tiles))
+                       for b in range(plan.grid)
+                       for t in plan.tiles(n_tiles, b, r)]
+            assert covered == list(range(n_tiles))
+
+
+@pytest.mark.parametrize("roww,tile,nbuf,k,rounds", [
+    (128, 2048, 16, 11, 3), (128, 2048, 8, 8, 2), (128, 8192, 16, 4, 2),
+    (64, 2048, 16, 8, 2), (64, 2048, 8, 4, 2), (64, 8192, 16, 2, 2)])
+def test_plan_at_the_study_shape(roww, tile, nbuf, k, rounds):
+    """2^23 indices into the study's 256 MiB table: 16 chunks of 16 MiB,
+    16 warps per multiprocessor at 512 B rows and 32 at 256 B, every block
+    slot busy, and few rounds (each round reads each chunk from device
+    memory about once)."""
+    n_rows, n_tiles = (256 << 20) // (roww * 4), (1 << 23) // tile
+    plan = gather.gather_plan(n_rows, roww, n_tiles, tile, nbuf, H100)
+    assert (plan.n_chunks, plan.chunk_rows) == (16, (16 << 20) // (roww * 4))
+    warps = {128: 16, 64: 32}[roww]
+    assert gather.target_warps(roww) == warps
+    assert plan.grid == H100.sms * warps // nbuf
+    assert (plan.k, plan.rounds(n_tiles)) == (k, rounds)
+    assert plan.piece == k * (tile // nbuf)
+
+
+def test_plan_wide_rows_and_chunk_rows():
+    """Rows whose accumulators do not fit go in column windows; a given
+    chunk_rows cuts the table with a ragged last chunk, and one that
+    makes too many chunks, or none, is refused."""
+    plan = gather.gather_plan(1000, 4096, 40, gather.MAX_TILE // 32 * 32, 32,
+                              H100)
+    assert plan.win < 1024 and plan.k == 1
+    assert _layout_bytes(plan, 32) <= plan.smem <= H100.smem_block
+    plan = gather.gather_plan(4099, 64, 24, 2048, 16, H100, chunk_rows=300)
+    assert (plan.chunk_rows, plan.n_chunks) == (300, 14)
+    assert 4099 - 13 * 300 == 199                  # the ragged last chunk
+    with pytest.raises(ValueError, match="chunks"):
+        gather.gather_plan(1 << 20, 64, 24, 2048, 16, H100, chunk_rows=1)
+    with pytest.raises(ValueError, match="positive"):
+        gather.gather_plan(4099, 64, 24, 2048, 16, H100, chunk_rows=0)
+    # a table of more chunks than the counts may hold gets larger chunks
+    huge = gather.gather_plan((1 << 31) - 1, 4, 24, 2048, 32, H100)
+    assert huge.n_chunks * 32 * 4 <= (H100.smem_block // 4)
