@@ -15,8 +15,9 @@ L = 256 (the exact stream's shape) or not (L = 150), shipped as vbytes.
   counts per slice of ``exact_apply_kernel`` (the kernel's own choice is the
   largest power of two within a third of the L2: 16 MiB on an H100).
 * ``parts``: where ``count_exact``'s time goes: the batch's first-probe
-  rows alone (``row_gather_kernel`` over the same 96 B rows in window
-  order) and its count updates alone (``index_add_`` of one into each hit
+  rows alone (``row_gather_kernel`` over the same 96 B rows; it reads them
+  chunk by chunk of the table, not in window order) and its count updates
+  alone (``index_add_`` of one into each hit
   id in window order, in id order, and grouped by quarter of the ids).
 
     python strainscan_tpu_torch/bench/exact_study.py designs [--root DIR]

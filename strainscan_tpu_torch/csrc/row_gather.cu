@@ -110,7 +110,8 @@ __device__ void sort_piece(const Plan& P, const int32_t* __restrict__ idx,
   for (int p = p0 + lane; p < p1; p += 32) {
     int j;
     const int32_t b = __ldg(idx + entry_at(P, t0, s, per_slot, p, j));
-    if (b >= 0 && b < P.n_rows) atomicAdd(cur + static_cast<unsigned>(b) / cr, 1);
+    if (b >= 0 && b < P.n_rows)
+      atomicAdd(cur + static_cast<unsigned>(b) / cr, 1);
   }
   __syncwarp();
   // exclusive scan of the counts, 32 chunks at a time
@@ -157,7 +158,8 @@ __device__ __forceinline__ void fold_segment(
       for (int u = 0; u < kUnroll; ++u)
         x[u] = __ldg(col + static_cast<int64_t>(rows[e + u]) * row_vecs);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) xor_into(acc[js[e + u] * win + v], x[u]);
+      for (int u = 0; u < kUnroll; ++u)
+        xor_into(acc[js[e + u] * win + v], x[u]);
     }
     for (; e < hi; ++e)
       xor_into(acc[js[e] * win + v],
@@ -176,7 +178,8 @@ __global__ void __launch_bounds__(1024)
   const int lane = threadIdx.x & 31;
   const int cur_stride = (P.n_chunks + 3) & ~3;
   uint4* acc = smem + static_cast<int64_t>(s) * P.k * P.win;
-  int* cur_base = reinterpret_cast<int*>(smem + static_cast<int64_t>(P.nbuf) * P.k * P.win);
+  int* cur_base = reinterpret_cast<int*>(
+      smem + static_cast<int64_t>(P.nbuf) * P.k * P.win);
   int* cur = cur_base + s * cur_stride;
   int32_t* rows = cur_base + P.nbuf * cur_stride + s * P.piece;
   uint8_t* js = reinterpret_cast<uint8_t*>(cur_base + P.nbuf * cur_stride +
@@ -190,7 +193,8 @@ __global__ void __launch_bounds__(1024)
   for (int64_t r = 0; r < rounds; ++r) {
     const int64_t t0 = r * per_round + static_cast<int64_t>(blockIdx.x) * P.k;
     const int64_t left = P.n_tiles - t0;
-    const int kk = left <= 0 ? 0 : (left < P.k ? static_cast<int>(left) : P.k);
+    if (left <= 0) break;   // this block's later rounds are empty too
+    const int kk = left < P.k ? static_cast<int>(left) : P.k;
     const int n_ent = kk * per_slot;
     for (int w = 0; w < n_wins; ++w) {
       const int w0 = w * P.win;
@@ -216,30 +220,6 @@ __global__ void __launch_bounds__(1024)
       }
     }
   }
-}
-
-// the plan's grid, unless fewer blocks are resident (the tiles are walked
-// with the grid's own stride, so any grid covers them)
-cudaError_t launch(const uint4* table, const int32_t* idx, const Plan& P,
-                   int grid, int smem, uint4* out, int device,
-                   cudaStream_t stream) {
-  cudaError_t err = cudaSuccess;
-  if (smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(row_gather_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int threads = P.nbuf * 32;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, row_gather_kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm > 0 && grid > sms * per_sm) grid = sms * per_sm;
-  row_gather_kernel<<<grid, threads, smem, stream>>>(table, idx, P, out);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -279,12 +259,28 @@ int row_gather_launch(int device, const void* table, long long n_rows,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
+  if (smem > kDefaultSmem) {
+    err = cudaFuncSetAttribute(row_gather_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = nbuf * 32;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, row_gather_kernel, threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the plan's grid, unless fewer blocks are resident (the tiles are walked
+  // with the grid's own stride, so any grid covers them)
+  if (per_sm > 0 && grid > sms * per_sm) grid = sms * per_sm;
   const Plan P{n_rows, row_words / 4, n_tiles, tile, nbuf, chunk_rows,
                n_chunks, k, piece, win};
-  return static_cast<int>(launch(
+  row_gather_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(table), static_cast<const int32_t*>(idx), P,
-      grid, smem, static_cast<uint4*>(out), device,
-      static_cast<cudaStream_t>(stream)));
+      static_cast<uint4*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -39,7 +39,8 @@ from strainscan_tpu_torch.ops.probe import LAUNCHES, _check, _route
 PLAIN_CHUNK_ROWS = 1 << 20
 
 MAX_NBUF = 32                      # warps per block
-MAX_TILE = 232_448 // 4            # the tile's int32 indices in shared memory
+MAX_TILE = 232_448 // 4            # a tile's int32 indices fill a block's
+                                   # shared memory on an H100
 
 # the plan: 16 B lane loads a multiprocessor should keep in flight (16
 # warps of 512 B rows, kUnroll 8 rows each), the most tiles a block takes per
@@ -103,8 +104,9 @@ def chunk_budget(l2_bytes: int) -> int:
 def target_warps(roww: int) -> int:
     """Warps per multiprocessor for rows of ``roww`` words: a warp of 16 B
     lanes loads ``min(roww // 4, 32)`` lanes of each row, so narrow rows
-    need more warps for the same loads in flight (at most 64)."""
-    return min(64, LANE_LOADS_SM // (8 * min(roww // 4, 32)))
+    need more warps for the same loads in flight; at most 32, which the
+    registers hold (the kernel's launch bound keeps it to 64 a thread)."""
+    return min(32, LANE_LOADS_SM // (8 * min(roww // 4, 32)))
 
 
 def _up16(n: int) -> int:
@@ -234,28 +236,6 @@ def plan_for(table: torch.Tensor, idx: torch.Tensor, *, tile: int,
                        device_of(table.device.index), chunk_rows)
 
 
-def launch(table: torch.Tensor, idx: torch.Tensor, *, tile: int, nbuf: int,
-           plan: GatherPlan) -> torch.Tensor:
-    """``row_gather_kernel`` on CUDA tensors with the given plan."""
-    n_tiles = _validate(table, idx, tile, nbuf)
-    if not _route(table, idx):
-        raise ValueError("the kernel takes CUDA tensors")
-    if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned (row vector loads)")
-    n_rows, roww = table.shape
-    out = torch.empty((n_tiles * nbuf, roww), dtype=torch.int32,
-                      device=table.device)
-    if n_tiles == 0:
-        return out
-    _build.check(_build.lib().row_gather_launch(
-        table.device.index, table.data_ptr(), n_rows, roww, idx.data_ptr(),
-        n_tiles, tile, nbuf, plan.chunk_rows, plan.n_chunks, plan.k,
-        plan.piece, plan.win, plan.grid, plan.smem, out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream),
-        "row_gather_kernel launch")
-    LAUNCHES["row_gather_kernel"] += 1
-    return out
-
-
 def row_gather_xor(table: torch.Tensor, idx: torch.Tensor, *, tile: int,
                    nbuf: int, chunk_rows: Optional[int] = None
                    ) -> torch.Tensor:
@@ -272,8 +252,22 @@ def row_gather_xor(table: torch.Tensor, idx: torch.Tensor, *, tile: int,
 
     Returns int32 ``[(W // tile) * nbuf, roww]``.
     """
+    n_tiles = _validate(table, idx, tile, nbuf)
     if not _route(table, idx):
         return row_gather_xor_plain(table, idx, tile=tile, nbuf=nbuf)
-    return launch(table, idx, tile=tile, nbuf=nbuf,
-                  plan=plan_for(table, idx, tile=tile, nbuf=nbuf,
-                                chunk_rows=chunk_rows))
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned (row vector loads)")
+    n_rows, roww = table.shape
+    out = torch.empty((n_tiles * nbuf, roww), dtype=torch.int32,
+                      device=table.device)
+    if n_tiles == 0:
+        return out
+    plan = plan_for(table, idx, tile=tile, nbuf=nbuf, chunk_rows=chunk_rows)
+    _build.check(_build.lib().row_gather_launch(
+        table.device.index, table.data_ptr(), n_rows, roww, idx.data_ptr(),
+        n_tiles, tile, nbuf, plan.chunk_rows, plan.n_chunks, plan.k,
+        plan.piece, plan.win, plan.grid, plan.smem, out.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream),
+        "row_gather_kernel launch")
+    LAUNCHES["row_gather_kernel"] += 1
+    return out
