@@ -35,7 +35,13 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    same reads against the 28.6 M-key KmerTable (2^24 buckets x 96 B on the
    card): equal to count_exact_plain over the stream and to
    KmerTable.lookup_host + bincount on one batch; the ids where it differs
-   from the fp counts (fingerprint strays) are counted.  Times (CUDA
+   from the fp counts (fingerprint strays) are counted.  Each count's
+   stream-end fetch (ops.count.FETCHES) is logged (route, nnz, d2h bytes,
+   slot_of_id upload) and must take the route the JAX package's rule gives
+   for its stats; ops.count.fetch_counts is run on device vectors of
+   28,588,812 ids forced onto each route (sparse and dense at one, two and
+   four bytes a value, and all zeros), each bit-exact against .cpu() of
+   the same tensor, and timed beside that copy.  Times (CUDA
    events, in turns): end-to-end reads/s of both modes; probe_prep_kernel
    against its plain twin at B = 65,536 x L = 150 and padded to L = 256;
    count_exact where the exact stream runs it (65,536 reads padded to
@@ -94,8 +100,10 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
    bench.scale_parity identifies the four cold and then warm on the GPU,
    and the first three on the CPU.  Every report must be byte-identical
    between them, the truth strains found, intramix must reach the Enet
-   vote, the DB's table must be uploaded once, and every GPU sample must
-   launch each of count_fp's kernels.
+   vote, the DB's table must be uploaded once, every GPU sample must
+   launch each of count_fp's kernels, and every finish (each sample's main
+   count and L2 union count) is logged and must take the JAX rule's fetch
+   route for its stats.
 
 Each path's launch counters are set to 0 just before it and read just
 after: the main path, each sample of phase 7's E. coli-scale identify
@@ -216,6 +224,31 @@ def check(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def jax_fetch_route(f: dict) -> tuple:
+    """(route, bytes per value) that the JAX package's fetch rule gives for
+    a fetch's stats: strainscan_tpu/ops/count.py:256-266 for an id-space
+    vector, :433-438 for the fp finish's slot-space test."""
+    vb = 1 if f["maxc"] < 1 << 8 else 2 if f["maxc"] < 1 << 16 else 4
+    fits = 0 < f["nnz"] <= f["cap"] and (
+        f["space"] == "slot" or f["cap"] < f["n"])
+    small = f["nnz"] * (4 + vb) < (f["n"] * vb) // 2
+    return ("sparse" if fits and small else "dense"), vb
+
+
+def check_fetches(what: str, fetches: list, tag: str) -> None:
+    """Log each stream-end fetch (an ops.count.Fetch as a dict) and check
+    that it took the JAX rule's route for its stats."""
+    for f in fetches:
+        want = jax_fetch_route(f)
+        log(f"[fetch] {what}: {f.get('count', 'main')} count, {f['route']} "
+            f"in {f['space']} space, u{8 * f['vb']}, nnz {f['nnz']} of "
+            f"{f['n']}, max {f['maxc']}, {f['d2h_bytes']} B d2h, "
+            f"slot_of_id uploaded {f['soi_uploaded']}, {f['s']} s [{tag}]")
+        check((f["route"], f["vb"]) == want,
+              f"{what}: fetch {f} took ({f['route']}, {f['vb']}), the JAX "
+              f"rule {want}")
 
 
 # ----------------------------------------------------------- synthesis
@@ -494,6 +527,7 @@ def phase_count(dev, tag: str) -> dict:
     from strainscan_tpu_torch.config import IdentifyConfig
     from strainscan_tpu_torch.identify.count import (count_sample,
                                                      iter_payloads)
+    from strainscan_tpu_torch.ops import count as ops_count
     from strainscan_tpu_torch.ops import probe
     from strainscan_tpu_torch.ops.count import CountPipeline
 
@@ -523,10 +557,14 @@ def phase_count(dev, tag: str) -> dict:
     for rep in range(COUNT_REPS):
         sync(dev)
         probe.reset_launches()
+        ops_count.reset_fetches()
         t0 = time.perf_counter()
         got = count_sample(fpt, fq, dev)
         times.append(time.perf_counter() - t0)
         launches_per_sample = dict(probe.LAUNCHES)
+        check(len(ops_count.FETCHES) == 1, "one fetch per count")
+        check_fetches(f"count-ecoli rep {rep}",
+                      [f._asdict() for f in ops_count.FETCHES], tag)
         check(ids is None or np.array_equal(got, ids), "repeat count differs")
         ids = got
         log(f"[count] rep {rep}: {times[-1]} s, "
@@ -603,9 +641,31 @@ def phase_count(dev, tag: str) -> dict:
             f"{bound[0] / min(ms['kernel'])} of the kernel's time [{tag}]")
         prep[length] = dict(ms=ms, bound=bound)
     fp = time_count_fp(dev, tag, fpt, table, reads[:BATCH])
+    time_fetch(dev, tag)
     return dict(keys=keys, fpt=fpt, fq=fq, reads=reads, ids=ids, prep=prep,
                 fp=fp, union=time_union(dev, tag),
                 launches_per_sample=launches_per_sample)
+
+
+def time_fetch(dev, tag: str) -> None:
+    """fetch_counts on the card at identify-ecoli's 28,588,812 ids, each
+    route forced (bench.fetch_study.routes: sparse and dense at one, two and
+    four bytes a value, and all zeros), each bit-exact against .cpu() of
+    the same tensor and timed beside it, and the host floor under them."""
+    from strainscan_tpu_torch.bench import fetch_study
+
+    res = fetch_study.routes(dev)
+    floor = res.pop("host_floor")
+    log(f"[fetch] host floor at {fetch_study.N_IDS} int32: first write of "
+        f"fresh host memory {floor['first_touch_s']} s, a rewrite "
+        f"{floor['rewrite_s']} s, the pinned copy of the vector "
+        f"{floor['pinned_copy_s']} s [{tag}]")
+    for case, r in res.items():
+        log(f"[fetch] {case}: {r['route']} u{8 * r['vb']}, nnz {r['nnz']}, "
+            f"{r['d2h_bytes']} B d2h, bit-exact against .cpu(); "
+            f"fetch_counts {r['fetch_ms']} ms (CUDA events), "
+            f"{r['fetch_s']} s (host); .cpu() of {r['plain_bytes']} B "
+            f"{r['plain_ms']} ms, {r['plain_s']} s [{tag}]")
 
 
 def time_count_fp(dev, tag: str, fpt, table, reads: np.ndarray) -> dict:
@@ -1534,6 +1594,13 @@ def phase_ecoli(tag: str) -> dict:
     shared = {n: fqs[n] for n in ECOLI_CPU}
     recs["cpu/cold"] = scale_parity.identify_each(
         shared, db, os.path.join(out, "cpu", "cold"), "cpu")
+    for what, rs in recs.items():
+        for name, rec in rs.items():
+            check(sum(f["count"] == "main" for f in rec["fetches"]) == 1
+                  and rec["fetches"][0]["count"] == "main",
+                  f"{what} {name}: fetches {rec['fetches']}")
+            check_fetches(f"identify-ecoli {what} {name}", rec["fetches"],
+                          tag)
     groups = {what: scale_parity.report_groups(os.path.join(out, what))
               for what in recs}
     for name in fqs:

@@ -10,6 +10,8 @@
   kernels beside any other tree's, its fan-out and rows per block.
 * :mod:`.sanitize_counts` -- the count kernels once each at a reduced
   shape, for compute-sanitizer to watch.
+* :mod:`.fetch_study` -- the stream-end count fetch: each route alone, and
+  every finish of identify-ecoli and of the count, beside any other tree's.
 
 All measure on a CUDA device and raise without one: no number here comes
 from the CPU.

@@ -19,7 +19,9 @@ the kernels.  Reads/s is the median rep's.  Checks, each of which raises:
 * with a jellyfish binary (``--jellyfish``), the counts equal its dump.
 
 ``breakdown`` times parse and pack on the host and replays the resident
-first batch through ``count_fp`` with CUDA events (the device time).  The
+first batch through ``count_fp`` with CUDA events (the device time); it
+also keeps each rep's ``finish_s`` with its fetch's route and d2h bytes
+(``ops.count.FETCHES``).  The
 jellyfish baseline runs only when its binary exists; otherwise
 ``vs_baseline`` is null.
 
@@ -49,6 +51,7 @@ from strainscan_tpu_torch.bench import card_line, cuda_device, cuda_ms
 from strainscan_tpu_torch.index.hashtable import KmerTable
 from strainscan_tpu_torch.io import fastx
 from strainscan_tpu_torch.kmer import pack
+from strainscan_tpu_torch.ops import count as ops_count
 from strainscan_tpu_torch.ops.count import CountPipeline
 from strainscan_tpu_torch.ops.probe import count_fp
 from strainscan_tpu_torch.utils.prefetch import prefetch_iter
@@ -156,7 +159,7 @@ def bench_ours(db: np.ndarray, fq: str, n_reads: int, dev: torch.device,
     pipe.finish()
     paths = [fq] * passes
     n_streamed = n_reads * passes
-    times, finish_times = [], []
+    times, finish_times, fetches = [], [], []
     counts = None
     for rep in range(reps):
         pipe.reset()
@@ -174,8 +177,11 @@ def bench_ours(db: np.ndarray, fq: str, n_reads: int, dev: torch.device,
         counts = pipe.finish()
         finish_times.append(time.perf_counter() - t_fin)
         times.append(time.perf_counter() - t0)
+        fetches.append(ops_count.FETCHES[-1])
         log(f"ours rep {rep}: {times[-1]} s ({n_streamed / times[-1]} "
-            f"reads/s; finish/d2h {finish_times[-1]} s)")
+            f"reads/s; finish/d2h {finish_times[-1]} s, "
+            f"{fetches[-1].route}/{fetches[-1].space} u{8 * fetches[-1].vb}, "
+            f"{fetches[-1].d2h_bytes} B)")
     if counts.sum() <= 0:
         raise RuntimeError("the stream counted no k-mer")
     if (counts % passes).any():
@@ -188,7 +194,10 @@ def bench_ours(db: np.ndarray, fq: str, n_reads: int, dev: torch.device,
     t0 = time.perf_counter()
     bd = breakdown(pipe, fq, first, n_reads)
     log(f"breakdown measured in {time.perf_counter() - t0} s")
-    bd["finish_s"] = finish_times
+    bd.update(finish_s=finish_times,
+              finish_routes=[f"{f.route}/{f.space} u{8 * f.vb}"
+                             for f in fetches],
+              finish_d2h_bytes=[f.d2h_bytes for f in fetches])
     return n_streamed / float(np.median(times)), counts // passes, times, bd
 
 

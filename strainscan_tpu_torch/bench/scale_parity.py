@@ -17,7 +17,9 @@ of them through ``cli.main``, and one ``python -m strainscan_tpu_torch.cli
 identify`` of the first sample in a fresh process.  It keeps each sample's
 wall seconds, its ``identify/*`` and ``l2/*`` phase seconds, the seconds of
 the L2 union count, the count kernels' launches (``ops.probe.LAUNCHES``),
-the tables uploaded and the host's resident set, in
+the tables uploaded, every stream-end fetch (``ops.count.FETCHES``: route,
+d2h bytes, ``slot_of_id`` upload) with the main count's ``finish_s``, and
+the host's resident set, in
 ``<root>/parity/ours_<device>.json``, beside the report trees under
 ``<root>/parity/ours_<device>/``.  It fails if a sample finds no cluster,
 if the DB's table is uploaded more than once, or, on ``cuda``, if a sample
@@ -88,13 +90,16 @@ def instrument(rec: dict):
     """While the body runs, append the key count of every fp table
     uploaded to a device to ``rec["uploads_keys"]`` and the seconds of
     every L2 union count to ``rec["union_count_s"]``, and add the kernel
-    launches of the L2 union counts into ``rec["union_launches"]``."""
+    launches of the L2 union counts into ``rec["union_launches"]``.
+    Yields the set of the positions in ``ops.count.FETCHES`` of the L2
+    union counts' fetches."""
     from strainscan_tpu_torch.identify import vote
     from strainscan_tpu_torch.ops import count as ops_count
     from strainscan_tpu_torch.ops import probe
 
     upload, union = ops_count.fp_table_to_device, vote._count_union
     rec.update(uploads_keys=[], union_count_s=[], union_launches={})
+    union_at: set = set()
 
     def counted_upload(fpt, device):
         table = upload(fpt, device)
@@ -105,9 +110,11 @@ def instrument(rec: dict):
 
     def timed_union(*args, **kw):
         before = dict(probe.LAUNCHES)
+        n0 = len(ops_count.FETCHES)
         t0 = time.perf_counter()
         out = union(*args, **kw)
         rec["union_count_s"].append(time.perf_counter() - t0)
+        union_at.update(range(n0, len(ops_count.FETCHES)))
         for name, n in probe.LAUNCHES.items():
             if n > before[name]:
                 rec["union_launches"][name] = (
@@ -117,7 +124,7 @@ def instrument(rec: dict):
     ops_count.fp_table_to_device = counted_upload
     vote._count_union = timed_union
     try:
-        yield
+        yield union_at
     finally:
         ops_count.fp_table_to_device = upload
         vote._count_union = union
@@ -127,10 +134,13 @@ def measured(fn, device: str) -> dict:
     """Run ``fn()`` (true on success) once and return its record: wall
     seconds, ``ok``, the ``identify/*`` and ``l2/*`` phase seconds, the
     kernel launches (counted from 0), the uploads and union counts of
-    :func:`instrument`, the host's resident set and, on ``cuda``, the
-    peak device memory."""
+    :func:`instrument`, every stream-end fetch (``ops.count.FETCHES``,
+    each marked ``main`` or ``union``) with the main counts' ``finish_s``,
+    ``d2h_bytes`` and ``routes`` and the ``slot_of_id`` uploads of all,
+    the host's resident set and, on ``cuda``, the peak device memory."""
     import torch
 
+    from strainscan_tpu_torch.ops import count as ops_count
     from strainscan_tpu_torch.ops import probe
     from strainscan_tpu_torch.timing import PHASE_TIMES, rss_gb
 
@@ -138,15 +148,24 @@ def measured(fn, device: str) -> dict:
     rec: dict = {}
     PHASE_TIMES.clear()
     probe.reset_launches()
+    ops_count.reset_fetches()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    with instrument(rec):
+    with instrument(rec) as union_at:
         t0 = time.perf_counter()
         rec["ok"] = bool(fn())
         rec["s"] = time.perf_counter() - t0
+    fetches = [dict(f._asdict(), count="union" if i in union_at else "main")
+               for i, f in enumerate(ops_count.FETCHES)]
+    main = [f for f in fetches if f["count"] == "main"]
     rec.update(phases={k: v for k, v in PHASE_TIMES.items()
                        if k.startswith(("identify/", "l2/"))},
                launches={k: v for k, v in probe.LAUNCHES.items() if v},
+               fetches=fetches, finish_s=sum(f["s"] for f in main),
+               d2h_bytes=sum(f["d2h_bytes"] for f in main),
+               routes=[f"{f['route']}/{f['space']} u{8 * f['vb']}"
+                       for f in main],
+               soi_uploads=sum(f["soi_uploaded"] for f in fetches),
                rss_gb=rss_gb())
     if cuda:
         rec["gpu_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30

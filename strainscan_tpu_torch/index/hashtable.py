@@ -19,6 +19,8 @@ the device tables are int32 tensors holding the uint32 bits.
 from __future__ import annotations
 
 import dataclasses
+import weakref
+from typing import Optional
 
 import numpy as np
 import torch
@@ -628,13 +630,37 @@ def kmer_table_to_device(table: KmerTable,
 
 @dataclasses.dataclass
 class DeviceFpTable:
-    """An :class:`FpTable` resident on one device."""
+    """An :class:`FpTable` resident on one device.
+
+    Only ``fp`` is uploaded with the table.  ``slot_of_id`` (int32
+    ``[n_keys]``, 114 MB at E. coli scale) is uploaded at its first use,
+    the dense finish's slot -> id remap, and kept: a sample that takes the
+    sparse finish remaps on the host through ``FpTable.val`` and never
+    needs it (the JAX pipeline's ``_soi_dev``)."""
 
     fp: torch.Tensor          # int32 [n_buckets, bucket] (uint32 bits)
-    slot_of_id: torch.Tensor  # int32 [n_keys]
     n_buckets: int
     bucket: int
     seed: int
+    # the host table it came from; weak, since that table caches this one
+    host: "weakref.ref[FpTable]" = dataclasses.field(repr=False)
+    _soi: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                     repr=False)
+
+    @property
+    def has_slot_of_id(self) -> bool:
+        """Whether ``slot_of_id`` is on the device yet."""
+        return self._soi is not None
+
+    @property
+    def slot_of_id(self) -> torch.Tensor:
+        """int32 ``[n_keys]`` slot of every id on the device, uploaded at
+        the first call."""
+        if self._soi is None:
+            soi = np.ascontiguousarray(self.host().slot_of_id(),
+                                       dtype=np.int32)
+            self._soi = torch.from_numpy(soi).to(self.fp.device)
+        return self._soi
 
 
 def fp_table_of(table: KmerTable) -> FpTable:
@@ -649,8 +675,9 @@ def fp_table_of(table: KmerTable) -> FpTable:
 
 
 def fp_table_to_device(fpt: FpTable, device: torch.device) -> DeviceFpTable:
-    """Upload ``fpt`` to ``device``, cached on the FpTable per device, so a
-    process that identifies many samples uploads the table once."""
+    """Upload ``fpt``'s fingerprints to ``device``, cached on the FpTable
+    per device, so a process that identifies many samples uploads the
+    table once (``slot_of_id`` follows at its first use)."""
     device = torch.device(device)
     cache = getattr(fpt, "_torch_tables", None)
     if cache is None:
@@ -659,10 +686,8 @@ def fp_table_to_device(fpt: FpTable, device: torch.device) -> DeviceFpTable:
     out = cache.get(str(device))
     if out is None:
         fp = from_u32(fpt.fp.reshape(fpt.n_buckets, fpt.bucket))
-        soi = torch.from_numpy(np.ascontiguousarray(fpt.slot_of_id(),
-                                                    dtype=np.int32))
-        out = DeviceFpTable(fp=fp.to(device), slot_of_id=soi.to(device),
-                            n_buckets=fpt.n_buckets, bucket=fpt.bucket,
-                            seed=fpt.seed)
+        out = DeviceFpTable(fp=fp.to(device), n_buckets=fpt.n_buckets,
+                            bucket=fpt.bucket, seed=fpt.seed,
+                            host=weakref.ref(fpt))
         cache[str(device)] = out
     return out

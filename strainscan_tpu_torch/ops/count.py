@@ -10,14 +10,23 @@ batch:
   by table slice and probe each slice from shared memory, with the
   pipeline's :class:`..ops.probe.FpScratch`) probes the single-row
   fingerprint table into an int32 slot-space accumulator ``[n_slots + 1]``
-  (last entry: the trash slot); :meth:`CountPipeline.finish` gathers it
-  into the table's id space on the device through ``slot_of_id``.
+  (last entry: the trash slot), which :meth:`CountPipeline.finish`
+  brings into the table's id space (below).
 * ``probe_mode="exact"``: ``count_exact_kernel``
   (:func:`..ops.probe.count_exact`) probes the interleaved exact table into
   an int32 id-space accumulator ``[n_keys + 1]`` (last entry: the trash
-  entry); :meth:`CountPipeline.finish` returns its first ``n_keys`` entries.
+  entry); :meth:`CountPipeline.finish` fetches its first ``n_keys`` entries.
   It is the zero-stray escape hatch: a window is counted only when its
   whole key matches.
+
+The stream end is the JAX package's compact fetch (``fetch_counts``): an
+8 B read of the counts' max and nonzero count (:func:`count_stats`) picks
+the fewest bytes to copy to the host, either the nonzero entries as
+(index, value) pairs or the whole vector, with the values narrowed to one
+or two bytes where the max allows.  The fp finish takes the sparse route in
+slot space and remaps on the host through ``FpTable.val``, so the device
+table's ``slot_of_id`` is uploaded only for a sample that takes the dense
+route.  Every fetch is recorded in :data:`FETCHES`.
 
 With ``packed_transfer`` (default) batches ship as 2-bit words plus
 validity (``vlen`` where the fp mode can, else ``vbytes``), without it as
@@ -30,7 +39,8 @@ the copy of batch i + 1 overlaps the kernel of batch i.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+import time
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -107,6 +117,138 @@ def host_tensor(a: np.ndarray, pin: bool) -> torch.Tensor:
     return t.pin_memory() if pin else t
 
 
+class Fetch(NamedTuple):
+    """One stream-end fetch of counts to the host."""
+
+    route: str            # "sparse" (index, value pairs) or "dense"
+    space: str            # "slot": slot-space pairs remapped on the host;
+                          # "id": the id-space vector
+    maxc: int             # the stats that picked the route: max count,
+    nnz: int              # nonzero entries,
+    n: int                # entries of the result (n_keys),
+    cap: int              # and the sparse capacity (sparse_cap)
+    vb: int               # bytes per value shipped: 1, 2 or 4
+    d2h_bytes: int        # payload bytes, nnz * (4 + vb) or n * vb (the
+                          # 8 B of stats not counted)
+    soi_uploaded: bool = False  # this finish uploaded a slot_of_id
+    s: float = 0.0        # host wall seconds of the fetch, or of the
+                          # whole finish that made it
+
+
+# every fetch since the last reset_fetches(), in order (for the bench
+# scripts and the smoke; nothing else reads it)
+FETCHES: List[Fetch] = []
+
+
+def reset_fetches() -> None:
+    FETCHES.clear()
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A copy of ``t`` in host memory, as NumPy: on CUDA through a pinned
+    buffer on the current stream (so it follows the kernels that wrote
+    ``t``), synchronised before it returns.  Never a view of ``t``."""
+    if t.device.type != "cuda":
+        return t.clone().numpy()
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return buf.numpy()
+
+
+def count_stats(counts: torch.Tensor) -> Tuple[int, int]:
+    """``(max, nonzero count)`` of an int32 count vector: one 8 B read
+    (``_count_stats``).  ``(0, 0)`` for an empty vector."""
+    if counts.numel() == 0:
+        return 0, 0
+    st = torch.stack([counts.amax(),
+                      torch.count_nonzero(counts).to(torch.int32)])
+    maxc, nnz = _to_host(st).tolist()
+    return maxc, nnz
+
+
+def sparse_cap(n: int) -> int:
+    """The JAX package's sparse-fetch capacity for a vector of ``n``
+    entries (``_sparse_cap``): ``n / 8`` rounded up to a power of two, at
+    least 1,024.  A sample with more nonzeros takes the dense route."""
+    return 1 << max(10, (max(n // 8, 1) - 1).bit_length())
+
+
+def value_bytes(maxc: int) -> int:
+    """Bytes per value that hold every count up to ``maxc``: 1, 2 or 4."""
+    return 1 if maxc < (1 << 8) else 2 if maxc < (1 << 16) else 4
+
+
+def _narrow(x: torch.Tensor, vb: int) -> torch.Tensor:
+    """The low ``vb`` bytes of each little-endian int32 of ``x`` as uint8
+    ``[n * vb]`` (a byte view, which needs no uint16 ops on the device)."""
+    if vb == 4:
+        return x.view(torch.uint8)
+    return x.view(torch.uint8).reshape(-1, 4)[:, :vb].reshape(-1)
+
+
+def _widen(b: np.ndarray, vb: int) -> np.ndarray:
+    """:func:`_narrow`'s bytes on the host -> int32 values."""
+    return b.view({1: "<u1", 2: "<u2", 4: "<i4"}[vb]).astype(np.int32)
+
+
+def sparse_fetch(counts: torch.Tensor, nnz: int,
+                 vb: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Host ``(index, value)`` int32 arrays of the ``nnz`` nonzero entries
+    of ``counts`` (``_sparse_fetch``), copied as one buffer of
+    ``nnz * (4 + vb)`` bytes: the indices narrowed to int32 on the device,
+    the values to ``vb`` bytes.
+
+    Exactly ``nnz`` entries cross: the JAX package pads its nonzero to a
+    fixed capacity and rounds the copy up to 64 Ki entries only to keep its
+    compiled programs few, which eager PyTorch does not need."""
+    idx = torch.nonzero(counts).reshape(-1)
+    payload = torch.cat([idx.to(torch.int32).view(torch.uint8),
+                         _narrow(counts.index_select(0, idx), vb)])
+    host = _to_host(payload)
+    return host[:4 * nnz].view("<i4"), _widen(host[4 * nnz:], vb)
+
+
+def _fetch(counts: torch.Tensor, n_keys: int) -> Tuple[np.ndarray, Fetch]:
+    """:func:`fetch_counts` and its record."""
+    cap = sparse_cap(n_keys)
+    if n_keys == 0:
+        return (np.zeros(0, dtype=np.int32),
+                Fetch("dense", "id", 0, 0, 0, cap, 1, 0))
+    maxc, nnz = count_stats(counts)
+    vb = value_bytes(maxc)
+    sparse_bytes, dense_bytes = nnz * (4 + vb), n_keys * vb
+    if sparse_bytes < dense_bytes // 2 and 0 < nnz <= cap < n_keys:
+        idx, vals = sparse_fetch(counts, nnz, vb)
+        out = np.zeros(n_keys, dtype=np.int32)
+        out[idx] = vals
+        return out, Fetch("sparse", "id", maxc, nnz, n_keys, cap, vb,
+                          sparse_bytes)
+    return (_widen(_to_host(_narrow(counts, vb)), vb),
+            Fetch("dense", "id", maxc, nnz, n_keys, cap, vb, dense_bytes))
+
+
+def fetch_counts(dev_counts: torch.Tensor, n_keys: int, *,
+                 soi_uploaded: bool = False,
+                 since: Optional[float] = None) -> np.ndarray:
+    """Device int32 counts ``[n_keys]`` -> host int32 ``[n_keys]`` by the
+    JAX package's rule (``ops/count.py::fetch_counts``): with ``vb`` the
+    bytes that hold the max, the sparse route (indices and values,
+    ``nnz * (4 + vb)`` bytes) when that is under half of the dense
+    ``n_keys * vb`` bytes and ``0 < nnz <= sparse_cap(n_keys) < n_keys``,
+    else the dense vector at ``vb`` bytes a value.  Bit-exact with a plain
+    copy of ``dev_counts``.
+
+    Appends its :class:`Fetch` to :data:`FETCHES`, with ``soi_uploaded``
+    and the seconds since ``since`` (a ``time.perf_counter()`` reading;
+    default: this call's start), which a finish passes for itself."""
+    t0 = time.perf_counter() if since is None else since
+    out, rec = _fetch(dev_counts, n_keys)
+    FETCHES.append(rec._replace(soi_uploaded=soi_uploaded,
+                                s=time.perf_counter() - t0))
+    return out
+
+
 class CountPipeline:
     """Streaming counter over read batches against one table.
 
@@ -131,13 +273,15 @@ class CountPipeline:
         self.packed_transfer = packed_transfer
         self.probe_mode = probe_mode
         if probe_mode == "fp":
-            fpt = table if isinstance(table, FpTable) else fp_table_of(table)
-            self.table = fp_table_to_device(fpt, self.device)
+            self.fpt = (table if isinstance(table, FpTable)
+                        else fp_table_of(table))
+            self.table = fp_table_to_device(self.fpt, self.device)
             self.scratch = FpScratch()
-            n = fpt.n_slots + 1
+            n = self.fpt.n_slots + 1
         elif probe_mode == "exact":
             if not isinstance(table, KmerTable):
                 raise TypeError("probe_mode='exact' needs a KmerTable")
+            self.fpt = None
             self.table = kmer_table_to_device(table, self.device)
             n = table.n_keys + 1
         else:
@@ -201,14 +345,35 @@ class CountPipeline:
         self.counts.zero_()
 
     def finish(self) -> np.ndarray:
-        """int32 ``[n_keys]`` hit counts in the table's id space.
+        """int32 ``[n_keys]`` hit counts in the table's id space, fetched
+        as the JAX ``CountPipeline.finish`` fetches them.
 
-        fp mode: one device gather through ``slot_of_id`` reads only
-        occupied slots, so a window that matched an empty slot's
-        fingerprint 0 is dropped here, as the JAX remap drops it.  Exact
-        mode: the accumulator already is in id space."""
-        if self.probe_mode == "fp":
-            ids = self.counts.index_select(0, self.table.slot_of_id)
-        else:
-            ids = self.counts[:-1]
-        return ids.cpu().numpy()
+        fp mode: the stats of the occupied slots (the trash slot dropped;
+        a window that matched an empty slot's fingerprint 0 is counted
+        there) pick the route.  Sparse: the nonzero slots and their counts
+        cross, and the host maps them to ids through ``FpTable.val``,
+        dropping the empty slots' strays (``val < 0``).  Dense: one device
+        gather through the device table's ``slot_of_id`` (uploaded at the
+        first such finish), which reads only occupied slots, then
+        :func:`fetch_counts`.  Exact mode: :func:`fetch_counts` of the
+        accumulator without its trash entry.  Records one :class:`Fetch`."""
+        if self.fpt is None:
+            return fetch_counts(self.counts[:-1], self.table.n_keys)
+        t0 = time.perf_counter()
+        fpt = self.fpt
+        occ = self.counts[:fpt.n_slots]
+        maxc, nnz = count_stats(occ)
+        vb, cap = value_bytes(maxc), sparse_cap(fpt.n_slots)
+        if 0 < nnz <= cap and nnz * (4 + vb) < (fpt.n_keys * vb) // 2:
+            idx, vals = sparse_fetch(occ, nnz, vb)
+            ids = fpt.val[idx]
+            keep = ids >= 0
+            out = np.zeros(fpt.n_keys, dtype=np.int32)
+            out[ids[keep]] = vals[keep]
+            FETCHES.append(Fetch("sparse", "slot", maxc, nnz, fpt.n_keys,
+                                 cap, vb, nnz * (4 + vb),
+                                 s=time.perf_counter() - t0))
+            return out
+        upload = not self.table.has_slot_of_id
+        ids = self.counts.index_select(0, self.table.slot_of_id)
+        return fetch_counts(ids, fpt.n_keys, soi_uploaded=upload, since=t0)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,9 +41,9 @@ from strainscan_tpu_torch.index.hashtable import (BUCKET, KmerTable,
 from strainscan_tpu_torch.device import resolve_device
 from strainscan_tpu_torch.kmer.device import from_u32
 from strainscan_tpu_torch.ops import l2
-from strainscan_tpu_torch.ops.count import (Payload, host_tensor,
-                                            pack_payload, pad_invalid_rows,
-                                            shape_batch)
+from strainscan_tpu_torch.ops.count import (Payload, fetch_counts,
+                                            host_tensor, pack_payload,
+                                            pad_invalid_rows, shape_batch)
 from strainscan_tpu_torch.ops.probe import FpScratch, count_exact, count_fp
 from strainscan_tpu_torch.parallel import distributed as dist
 
@@ -370,12 +371,17 @@ class ShardedCountPipeline:
     def finish(self) -> np.ndarray:
         """int32 ``[n_keys]`` counts in the caller's id space: the totals
         summed over ``data``, gathered through each shard's ``soi``,
-        concatenated over ``index``, then mapped through ``value_map``."""
+        concatenated over ``index`` on the first device, fetched by
+        :func:`..ops.count.fetch_counts` at its padded length (padding ids
+        read the trash slot, as in the JAX finish), then mapped through
+        ``value_map``."""
         st = self.st
         if self._totals is None:
             return np.zeros(st.n_keys, dtype=np.int32)
+        t0 = time.perf_counter()
         heads = self.mesh.grid[0]
-        if self._soi_dev is None:
+        upload = self._soi_dev is None
+        if upload:
             self._soi_dev = [torch.from_numpy(st.soi[ii]).to(dev)
                              for ii, dev in enumerate(heads)]
         columns = []
@@ -383,7 +389,8 @@ class ShardedCountPipeline:
             total = _sum([row[ii] for row in self._totals], dev)
             columns.append(total.index_select(0, self._soi_dev[ii]))
         flat = torch.cat([c.to(self.mesh.first) for c in columns])
-        flat = flat.cpu().numpy()
+        flat = fetch_counts(flat, flat.numel(), soi_uploaded=upload,
+                            since=t0)
         vm = st.value_map
         if self._vm_ident is None:
             # default arange values + evenly divided shards make the map

@@ -99,7 +99,9 @@ def test_bench_counts_equal_jax(tmp_path, on_cpu):
     assert np.array_equal(counts, want)
     assert want.sum() == 3_000 * (bc.READ_LEN - bc.K + 1)
     assert len(times) == 2 and rps > 0
-    assert set(bd) == _dict_keys(bench.__file__, "breakdown") | {"finish_s"}
+    assert set(bd) == _dict_keys(bench.__file__, "breakdown") | {
+        "finish_s", "finish_routes", "finish_d2h_bytes"}
+    assert len(bd["finish_routes"]) == len(bd["finish_d2h_bytes"]) == 2
 
 
 def test_bench_json_carries_bench_py_keys(on_cpu):

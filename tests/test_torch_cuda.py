@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from strainscan_tpu_torch.bench import fetch_study
 from strainscan_tpu_torch.bench.count import host_window_keys
 from strainscan_tpu_torch.build.pipeline import build_database
 from strainscan_tpu_torch.config import BuildConfig, IdentifyConfig
@@ -24,6 +25,8 @@ from strainscan_tpu_torch.index.hashtable import (FpTable, KmerTable,
                                                   kmer_table_to_device)
 from strainscan_tpu_torch.kmer import pack
 from strainscan_tpu_torch.kmer.device import from_u32
+from strainscan_tpu_torch.ops.count import CountPipeline
+from strainscan_tpu_torch.ops import count as ops_count
 from strainscan_tpu_torch.ops import gather, probe
 from strainscan_tpu_torch.parallel import (ShardedCountPipeline, ShardedTable,
                                            make_mesh, sharded_count)
@@ -541,3 +544,43 @@ def test_multi_gpu_identify_equals_single_device(gpus, tmp_path):
     assert launched > 0 and launched % mesh.size == 0
     got = assert_reports_identical(outn, out1)
     assert any(n.endswith("StrainVote.report") for n in got)
+
+
+@pytest.mark.parametrize("route,vb", fetch_study.ROUTES)
+def test_fetch_counts_route_on_the_card(dev, route, vb):
+    """Each route of fetch_counts at identify-ecoli's 28,588,812 ids,
+    bit-exact against .cpu() of the same tensor."""
+    t = torch.from_numpy(fetch_study.route_vector(
+        route, vb, fetch_study.N_IDS)).to(dev)
+    ops_count.reset_fetches()
+    got = ops_count.fetch_counts(t, t.numel())
+    assert np.array_equal(got, t.cpu().numpy())
+    (rec,) = ops_count.FETCHES
+    assert (rec.route, rec.vb) == (("dense", 1) if route == "zeros"
+                                   else (route, vb))
+
+
+@pytest.mark.parametrize("rows", [20, 3001])
+def test_fp_finish_on_the_card_equals_cpu(dev, rows):
+    """The fp finish on the card, sparse (20 reads) and dense (3,001),
+    equal to the CPU pipeline's on the same batch and by the same route;
+    slot_of_id is uploaded only by the dense finish."""
+    rng = np.random.default_rng(41)
+    genome, keys = _genome_keys(rng)
+    starts = rng.integers(0, genome.size - 150, size=rows)
+    codes = np.full((rows, 160), 4, np.uint8)
+    codes[:, :150] = genome[starts[:, None] + np.arange(150)]
+    fpt = FpTable.build(keys, k=31)
+    ops_count.reset_fetches()
+    got = []
+    for d in (dev, torch.device("cpu")):
+        pipe = CountPipeline(fpt, d)
+        pipe.add_batch(codes)
+        got.append(pipe.finish())
+        assert pipe.table.has_slot_of_id == (rows > 20)
+    assert np.array_equal(got[0], got[1]) and got[0].sum() > 0
+    card, cpu = ops_count.FETCHES
+    assert card.soi_uploaded == (rows > 20)
+    assert card._replace(s=0, soi_uploaded=0) == cpu._replace(
+        s=0, soi_uploaded=0)
+    assert card.route == ("sparse" if rows == 20 else "dense")
