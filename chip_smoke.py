@@ -70,8 +70,10 @@ Phases (any failure raises and exits non-zero; nothing is passed over):
 5. Scale-out: a mesh over every visible GPU, or on a card that is alone a
    2 x 2 mesh whose four positions are all that card.  The sharded exact
    count (sharded_count) and the sharded fp pipeline (count_sample with
-   shard_min_kmers=1) over phase 3's reads must equal phase 3's
-   single-device counts (the sharded exact count three times over);
+   shard_min_kmers=1, each batch shipped to the devices by
+   ShardedCountPipeline.ship from the producer thread, which is logged)
+   over phase 3's reads must equal phase 3's single-device counts (the
+   sharded exact count three times over);
    phase 4's samples identified on the mesh with
    shard_min_kmers=1, shard_min_l2_rows=1 must give reports byte-identical
    to phase 4's GPU reports, with fp_bin_probe_kernel launched once per
@@ -146,6 +148,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1282,7 +1285,8 @@ def phase_scale(dev, tag: str, count: dict, exact: dict,
     from strainscan_tpu_torch.identify.count import IdentifyConfig
     from strainscan_tpu_torch.identify.pipeline import run_identify
     from strainscan_tpu_torch.ops import probe
-    from strainscan_tpu_torch.parallel import (ShardedTable, make_mesh,
+    from strainscan_tpu_torch.parallel import (ShardedCountPipeline,
+                                               ShardedTable, make_mesh,
                                                sharded_count)
 
     n_gpu = torch.cuda.device_count()
@@ -1323,22 +1327,42 @@ def phase_scale(dev, tag: str, count: dict, exact: dict,
 
     cfg = dataclasses.replace(IdentifyConfig(), shard_min_kmers=1)
     icount._SHARDED_CACHE.clear()
-    for rep in range(2):
-        probe.reset_launches()
-        sync(dev)
-        t0 = time.perf_counter()
-        ids = icount.count_sample(count["fpt"], count["fq"], mesh, cfg,
-                                  keys=keys)
-        dt = time.perf_counter() - t0
-        launched = probe.LAUNCHES["fp_bin_probe_kernel"]
-        check(launched > 0 and launched % mesh.size == 0,
-              f"sharded pipeline launches {dict(probe.LAUNCHES)}")
-        check(np.array_equal(ids, count["ids"]),
-              "sharded count_sample != the single-device fp counts")
-        log(f"[scale] sharded count_sample rep {rep}: equal to the "
-            f"single-device counts, {dt} s, {N_READS / dt} reads/s end to "
-            f"end ({'cold: includes the sharded fp build and uploads' if rep == 0 else 'warm: cached pipeline'}), "
-            f"{launched} fp_bin_probe_kernel launches [{tag}]")
+    ship = ShardedCountPipeline.ship
+    shipped: list = []
+
+    def spied(self, payloads):   # which thread copies each batch over
+        shipped.append(threading.current_thread().name)
+        return ship(self, payloads)
+
+    ShardedCountPipeline.ship = spied
+    try:
+        for rep in range(2):
+            probe.reset_launches()
+            shipped.clear()
+            sync(dev)
+            t0 = time.perf_counter()
+            ids = icount.count_sample(count["fpt"], count["fq"], mesh, cfg,
+                                      keys=keys)
+            dt = time.perf_counter() - t0
+            launched = probe.LAUNCHES["fp_bin_probe_kernel"]
+            check(launched > 0 and launched % mesh.size == 0,
+                  f"sharded pipeline launches {dict(probe.LAUNCHES)}")
+            check(len(shipped) == launched // mesh.size
+                  and set(shipped) == {"strainscan-prefetch"},
+                  f"sharded count_sample shipped {len(shipped)} batches "
+                  f"from threads {sorted(set(shipped))}")
+            log(f"[scale] sharded count_sample rep {rep}: payloads shipped "
+                f"by ShardedCountPipeline.ship from the producer thread, "
+                f"{len(shipped)} batches, each copied on each device's "
+                f"copy stream [{tag}]")
+            check(np.array_equal(ids, count["ids"]),
+                  "sharded count_sample != the single-device fp counts")
+            log(f"[scale] sharded count_sample rep {rep}: equal to the "
+                f"single-device counts, {dt} s, {N_READS / dt} reads/s end "
+                f"to end ({'cold: includes the sharded fp build and uploads' if rep == 0 else 'warm: cached pipeline'}), "
+                f"{launched} fp_bin_probe_kernel launches [{tag}]")
+    finally:
+        ShardedCountPipeline.ship = ship
     icount._SHARDED_CACHE.clear()
 
     db, samples, out = ident["db"], ident["samples"], ident["out"]

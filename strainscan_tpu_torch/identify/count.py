@@ -2,8 +2,10 @@
 
 Port of ``strainscan_tpu/identify/count.py`` (the jellyfish replacement of
 reference library/identify.py:73-103).  Parse and pack run in a producer
-thread (``utils.prefetch``); the main thread copies each batch to the
-device(s) and launches the count.
+thread (``utils.prefetch``), and so does the sharded pipeline's copy to its
+devices (``ShardedCountPipeline.ship``); the main thread launches the
+count (and copies the batch first on the single-device pipeline, which
+copies on a side stream of its own).
 
 * One device (a 1 x 1 mesh): :class:`..ops.count.CountPipeline`.
 * A mesh of several positions, one process, the DB's key array given and a
@@ -17,6 +19,7 @@ device(s) and launches the count.
 
 from __future__ import annotations
 
+import threading
 from typing import Iterator, List, Optional, Sequence, Union
 
 import numpy as np
@@ -42,6 +45,9 @@ PathLike = Union[str, Sequence[str]]
 _SHARDED_CACHE: list = []
 _SHARDED_CACHE_MAX = 2
 
+# batches the producer thread keeps ready (utils.prefetch's default)
+PREFETCH_DEPTH = 2
+
 
 def _sharded_pipeline(keys: np.ndarray, k: int, canonical: bool,
                       mesh: Mesh) -> ShardedCountPipeline:
@@ -65,14 +71,37 @@ def iter_payloads(pipe, fq_paths: PathLike,
                   use_native: bool = True) -> Iterator[List[Payload]]:
     """Prepared batches of this process's share of the sample (every Nth
     batch of N processes), parsed and packed in a producer thread
-    (``pipe.prepare_batch``), ready for ``pipe.add_prepared``."""
+    (``pipe.prepare_batch``) and, where the pipeline has ``ship``, copied
+    to its devices in that thread too, as the JAX package's
+    ``count_sample`` ships them; ready for ``pipe.add_prepared``."""
     pidx, pcount = dist.process_info()
     batches = fastx.read_batches(
         fq_paths, batch=cfg.read_batch, maxlen=cfg.max_read_len,
         k=pipe.k, use_native=use_native)
-    return prefetch_iter(pipe.prepare_batch(b)
-                         for bi, b in enumerate(batches)
-                         if bi % pcount == pidx)
+    prepared = (pipe.prepare_batch(b) for bi, b in enumerate(batches)
+                if bi % pcount == pidx)
+    ship = getattr(pipe, "ship", None)
+    if ship is None:
+        return prefetch_iter(prepared, PREFETCH_DEPTH)
+    return _shipped(prepared, ship)
+
+
+def _shipped(prepared, ship) -> Iterator:
+    """``ship`` of each of ``prepared`` in the producer thread, with at
+    most ``PREFETCH_DEPTH + 1`` shipped batches alive: the one the caller
+    counts and those queued or in the copy.  The producer takes a slot
+    before it ships; a slot frees when the caller asks for the next batch,
+    having launched the count of the last one."""
+    slots = threading.Semaphore(PREFETCH_DEPTH + 1)
+
+    def produce():
+        for payloads in prepared:
+            slots.acquire()
+            yield ship(payloads)
+
+    for shipped in prefetch_iter(produce(), PREFETCH_DEPTH):
+        yield shipped
+        slots.release()
 
 
 def count_sample(

@@ -24,6 +24,9 @@ Layout, as in the JAX package:
 
 Cross-device copies (``Tensor.to``) order themselves after the source
 device's current stream, so each sum waits for the kernels before it.
+Read batches reach the devices through :meth:`ShardedCountPipeline.ship`
+(from the producer thread, on a copy stream per device), as the JAX
+package's ``ship`` moves them there from its producer.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -271,15 +274,28 @@ class ShardedFpTable:
                    value_map=value_map)
 
 
+class Shipped(NamedTuple):
+    """A payload on the mesh's devices (:meth:`ShardedCountPipeline.ship`):
+    for each (data group, device) the group's rows ``(a, b)`` on that
+    device and the event that follows their copy (None off CUDA)."""
+
+    form: str
+    parts: Dict[Tuple[int, str], Tuple[torch.Tensor,
+                                       Optional[torch.Tensor],
+                                       Optional[torch.cuda.Event]]]
+
+
 class ShardedCountPipeline:
     """Multi-device drop-in for :class:`..ops.count.CountPipeline`: the
     fingerprint table is sharded over the mesh's ``index`` axis, read
     batches stream over ``data``, every position keeps its own slot-space
     total, and :meth:`finish` merges them once.
 
-    Host to device: each data group's rows go whole to every device of the
-    group, once per device (positions that share a device share the copy),
-    so every byte crosses the host link at most once per device.
+    Host to device (:meth:`ship`): each data group's rows go whole to every
+    device of the group, once per device (positions that share a device
+    share the copy), so every byte crosses the host link at most once per
+    device.  On CUDA the copies run on a copy stream of each device, beside
+    its kernels rather than in series with them.
 
     :meth:`finish` returns counts in the CALLER's k-mer id space (the
     ``values`` passed to ``build``), like the single-device pipeline.
@@ -296,6 +312,10 @@ class ShardedCountPipeline:
         self.canonical = canonical
         self.packed_transfer = packed_transfer
         self._pin = any(dev.type == "cuda" for dev in self.mesh.devices)
+        # one copy stream per CUDA device, for the pipeline's life
+        self._copy_streams = {str(dev): torch.cuda.Stream(dev)
+                              for dev in set(self.mesh.devices)
+                              if dev.type == "cuda"}
         self._fp_dev: Optional[dict] = None     # (index, device) -> shard
         self._soi_dev: Optional[list] = None    # per index column
         self._totals: Optional[list] = None     # [data][index] accumulators
@@ -326,30 +346,69 @@ class ShardedCountPipeline:
                              lambda a: host_tensor(a, self._pin))
                 for b in blocks]
 
-    def add_prepared(self, payloads: List[Payload]) -> None:
-        """Copy each data group's rows to its devices and launch one
-        ``count_fp`` per position on its shard."""
-        self._ensure_device_state()
-        st, cols = self.st, self._shape[1]
+    def _copy(self, host: Sequence[Optional[torch.Tensor]],
+              dev: torch.device):
+        """``host`` on ``dev``: on CUDA an asynchronous copy on the
+        device's copy stream, and the event recorded after it."""
+        if dev.type != "cuda":
+            return (*(None if t is None else t.to(dev) for t in host), None)
+        stream = self._copy_streams[str(dev)]
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            moved = [None if t is None else t.to(dev, non_blocking=True)
+                     for t in host]
+            done = torch.cuda.Event()
+            done.record(stream)
+        return (*moved, done)
+
+    def ship(self, payloads: List[Payload]) -> List[Shipped]:
+        """h2d half of :meth:`add_prepared`: each data group's rows of each
+        payload to each device of the group, once per device.  Called from
+        the producer thread (``identify.count.iter_payloads``), so the copy
+        runs while the main thread launches the kernels of the last
+        batch."""
         d = self.mesh.shape["data"]
+        out = []
         for form, a, b in payloads:
             rows = a.shape[0] // d
+            parts: dict = {}
             for di, row in enumerate(self.mesh.grid):
-                copies: dict = {}
+                block = [None if t is None else t[di * rows:(di + 1) * rows]
+                         for t in (a, b)]
+                for dev in row:
+                    if (di, str(dev)) not in parts:
+                        parts[di, str(dev)] = self._copy(block, dev)
+            out.append(Shipped(form, parts))
+        return out
+
+    def add_prepared(self, payloads) -> None:
+        """Launch one ``count_fp`` per position on its shard, for payloads
+        from :meth:`ship` or from :meth:`prepare_batch` (shipped here).
+        Each device's current stream first waits for the batch's copy to
+        it; the copied tensors are marked used there, so their memory is
+        reused only after the kernels that read them."""
+        self._ensure_device_state()
+        st, cols = self.st, self._shape[1]
+        for p in payloads:
+            if not isinstance(p, Shipped):
+                (p,) = self.ship([p])
+            for a, b, done in p.parts.values():
+                if done is not None:
+                    cur = torch.cuda.current_stream(a.device)
+                    cur.wait_event(done)
+                    for t in (a, b):
+                        if t is not None:
+                            t.record_stream(cur)
+            for di, row in enumerate(self.mesh.grid):
                 for ii, dev in enumerate(row):
+                    reads, valid, _ = p.parts[di, str(dev)]
                     with _on(dev):
-                        if str(dev) not in copies:
-                            copies[str(dev)] = [
-                                None if t is None else
-                                t[di * rows:(di + 1) * rows].to(
-                                    dev, non_blocking=True) for t in (a, b)]
-                        reads, valid = copies[str(dev)]
                         count_fp(self._totals[di][ii], reads,
                                  self._fp_dev[ii, str(dev)], length=cols,
                                  k=st.k, seed=st.seed,
                                  canonical=self.canonical,
                                  scratch=self._scratch,
-                                 **({} if valid is None else {form: valid}))
+                                 **({} if valid is None
+                                    else {p.form: valid}))
 
     def add_batch(self, codes: np.ndarray) -> None:
         self.add_prepared(self.prepare_batch(codes))
@@ -362,11 +421,13 @@ class ShardedCountPipeline:
         self._shape = None
 
     def close(self) -> None:
-        """Drop the device buffers (table shards, totals, slot_of_id), so
-        an evicted cache entry frees device memory now, not at GC time."""
+        """Drop the device buffers (table shards, totals, slot_of_id and
+        the count's scratch), so an evicted cache entry frees device
+        memory now, not at GC time."""
         self._fp_dev = None
         self._totals = None
         self._soi_dev = None
+        self._scratch = FpScratch()
 
     def finish(self) -> np.ndarray:
         """int32 ``[n_keys]`` counts in the caller's id space: the totals

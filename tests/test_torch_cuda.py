@@ -143,18 +143,14 @@ def test_count_exact_kernel_edges_equal_plain(dev, case, canonical):
             assert not any(stage.values()), (name, stage)
 
 
-def test_exact_counts_repeat_at_smoke_scale(dev):
-    """The exact count's hit list is in an order that varies from run to
-    run; its counts may not.  At chip_smoke.py's size (a seeded 14.3 Mb
-    genome's 28.6 M keys; 1.2 M reads of 150 bp, 5 % random, 5 % with a
-    mid-read N) the sharded count (raw codes on a 2 x 2 mesh of this card,
-    two shards at max_probe 2) and the single-device count_exact (raw
-    codes in one launch, and vbytes batches of 65,536 reads padded to
-    L = 256, as the exact stream ships them) are each run REPEAT times and
-    held against count_exact_plain."""
+def _smoke_exact_problem(dev):
+    """chip_smoke.py's exact-mode inputs: a seeded 14.3 Mb genome's
+    28.6 M keys (both strands), 1.2 M reads of 150 bp (half
+    reverse-complemented, 5 % random, 5 % with a mid-read N), its
+    KmerTable, its device table and the reads' count_exact_plain counts
+    on ``dev``."""
     from strainscan_tpu_torch.kmer import device as kdev
 
-    repeat = 4
     rng = np.random.default_rng(0)
     glen, n_reads, rlen = 14_300_000, 1_200_000, 150
     genome = rng.integers(0, 4, size=glen).astype(np.uint8)
@@ -171,11 +167,37 @@ def test_exact_counts_repeat_at_smoke_scale(dev):
     reads[-n_reads // 20:, 70] = 4
     kt = KmerTable.build(keys, k=31)
     tab = kmer_table_to_device(kt, dev).table
+    want = torch.zeros(kt.n_keys + 1, dtype=torch.int32, device=dev)
+    probe.count_exact_plain(want, torch.from_numpy(reads).to(dev), tab,
+                            length=rlen, k=31, max_probe=kt.max_probe)
+    assert int(want[:-1].sum()) > 0.8 * n_reads * (rlen - 30)
+    return keys, reads, kt, tab, want
+
+
+def _ids_differ(got, want, st):
+    """The ids where ``got`` differs from ``want`` (without its trash
+    entry): how many, how many per shard of ``st``, the first few."""
+    n = want.numel() - 1
+    diff = torch.nonzero(got[:n].to(want.device) != want[:-1]).ravel().cpu()
+    return {"ids": diff.numel(),
+            "per_shard": np.bincount(diff.numpy() // st.shard_cap).tolist(),
+            "first": diff[:8].tolist()} if diff.numel() else None
+
+
+def test_exact_counts_repeat_at_smoke_scale(dev):
+    """The exact count's hit list is in an order that varies from run to
+    run; its counts may not.  At chip_smoke.py's size (a seeded 14.3 Mb
+    genome's 28.6 M keys; 1.2 M reads of 150 bp, 5 % random, 5 % with a
+    mid-read N) the sharded count (raw codes on a 2 x 2 mesh of this card,
+    two shards at max_probe 2) and the single-device count_exact (raw
+    codes in one launch, and vbytes batches of 65,536 reads padded to
+    L = 256, as the exact stream ships them) are each run REPEAT times and
+    held against count_exact_plain."""
+    repeat = 4
+    keys, reads, kt, tab, want = _smoke_exact_problem(dev)
+    n_reads, rlen = reads.shape
     codes = torch.from_numpy(reads).to(dev)
     kw = dict(k=31, max_probe=kt.max_probe)
-    want = torch.zeros(kt.n_keys + 1, dtype=torch.int32, device=dev)
-    probe.count_exact_plain(want, codes, tab, length=rlen, **kw)
-    assert int(want[:-1].sum()) > 0.8 * n_reads * (rlen - 30)
     batches = []
     for i in range(0, n_reads, 65_536):
         padded = np.full((min(65_536, n_reads - i), 256), 4, np.uint8)
@@ -188,11 +210,8 @@ def test_exact_counts_repeat_at_smoke_scale(dev):
     mesh = make_mesh([dev] * 4)
 
     def check(got, what):
-        diff = torch.nonzero(got[:kt.n_keys] != want[:-1]).ravel().cpu()
-        assert diff.numel() == 0, (
-            f"{what}: {diff.numel()} ids differ (per shard "
-            f"{np.bincount(diff.numpy() // st.shard_cap).tolist()}, first "
-            f"{diff[:8].tolist()})")
+        bad = _ids_differ(got, want, st)
+        assert bad is None, f"{what}: {bad}"
 
     for rep in range(repeat):
         check(sharded_count(mesh, st, reads), f"sharded_count run {rep}")
@@ -204,6 +223,84 @@ def test_exact_counts_repeat_at_smoke_scale(dev):
         for words, vbytes in batches:
             probe.count_exact(one, words, tab, length=256, vbytes=vbytes, **kw)
         check(one, f"count_exact (vbytes, L = 256) run {rep}")
+
+
+def test_multi_gpu_exact_counts_repeat_at_smoke_scale(gpus):
+    """ROADMAP C1 on real devices: the sharded exact count on a mesh of
+    every visible GPU (its sums and gathers cross devices), run 20 times
+    at chip_smoke.py's size, against the single-device count_exact and
+    count_exact_plain on the first GPU; names the ids that differ in any
+    run."""
+    keys, reads, kt, tab, want = _smoke_exact_problem(gpus[0])
+    mesh = make_mesh(gpus)
+    assert len(set(mesh.devices)) == len(gpus)
+    one = torch.zeros_like(want)
+    probe.count_exact(one, torch.from_numpy(reads).to(gpus[0]), tab,
+                      length=reads.shape[1], k=31, max_probe=kt.max_probe)
+    assert torch.equal(one, want)
+    st = ShardedTable.build(keys, k=31, n_shards=mesh.shape["index"])
+    bad = {}
+    for rep in range(20):
+        got = sharded_count(mesh, st, reads)
+        assert got.device == mesh.first
+        diff = _ids_differ(got, want, st)
+        if diff:
+            bad[rep] = diff
+    assert not bad, f"runs of 20 whose counts differ on {mesh}: {bad}"
+
+
+@pytest.fixture(scope="module")
+def ecoli_inputs(tmp_path_factory):
+    """bench.py's ecoli tier (28.6 M keys) with 300,000 reads (five
+    batches, the last one partial), its FpTable and the single-device
+    count on the first GPU."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices (a multi-GPU mesh)")
+    from strainscan_tpu_torch.bench import count as bcount
+    from strainscan_tpu_torch.identify import count as icount
+
+    dev = torch.device("cuda", 0)
+    keys, fq = bcount.synthesize(str(tmp_path_factory.mktemp("ecoli")),
+                                 "ecoli", 14_300_000, 300_000, device=dev)
+    fpt = FpTable.build(keys, k=31)
+    return keys, fq, fpt, icount.count_sample(fpt, fq, dev, keys=keys)
+
+
+@pytest.mark.parametrize("index_shards", [None, 1])
+def test_multi_gpu_sharded_fp_count_at_ecoli_scale_ships(ecoli_inputs,
+                                                         index_shards,
+                                                         monkeypatch):
+    """The sharded fp count of every visible GPU (2 x 2 and 4 x 1 on four)
+    at the 28.6 M-key table, its batches shipped from the producer thread,
+    equals the single-device count."""
+    import threading
+
+    from strainscan_tpu_torch.identify import count as icount
+    from strainscan_tpu_torch.parallel import sharded as psh
+
+    keys, fq, fpt, single = ecoli_inputs
+    gpus = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    mesh = make_mesh(gpus, index_shards=index_shards)
+    threads = []
+    ship = psh.ShardedCountPipeline.ship
+
+    def spied(self, payloads):
+        threads.append(threading.current_thread().name)
+        return ship(self, payloads)
+
+    monkeypatch.setattr(psh.ShardedCountPipeline, "ship", spied)
+    icount._SHARDED_CACHE.clear()
+    before = probe.LAUNCHES["fp_bin_probe_kernel"]
+    try:
+        got = icount.count_sample(fpt, fq, mesh, IdentifyConfig(), keys=keys)
+    finally:
+        icount._SHARDED_CACHE.clear()
+    launched = probe.LAUNCHES["fp_bin_probe_kernel"] - before
+    assert threads == ["strainscan-prefetch"] * 5
+    assert launched == 5 * mesh.size
+    assert single.sum() > 0
+    assert np.array_equal(got, single), \
+        f"{int(np.count_nonzero(got != single))} ids differ on {mesh}"
 
 
 def _genome_keys(rng, glen=20_000):

@@ -11,6 +11,9 @@
   reports byte-identical to the JAX ``run_identify`` on the JAX fixture.
 * ``scale_parity diff`` passes on equal trees and fails on a changed field,
   an Enet field off by 1e-12 included.
+* ``scale_parity ours`` on a 2 x 2 ``cpu`` mesh with the L2 mesh gate open
+  and ``procs 2`` (two gloo processes under torchrun) write trees that
+  ``diff`` holds byte-identical to the one-position tree.
 
 Tolerance: none; every output compared here is bytes.
 """
@@ -248,3 +251,50 @@ def test_trace_summary_ops_per_range():
                                                pytest.approx(0.05))]
     assert ph["identify/l2_vote"]["device_op_ms"] == pytest.approx(0.19)
     assert s["device_ms"] == pytest.approx(0.49)
+
+
+def test_mesh_and_procs_trees_equal_cpu(fixtures, ours_cpu):
+    """``ours`` on a 2 x 2 ``cpu`` mesh with the L2 mesh gate open
+    (``--l2-rows 1``) and ``procs 2`` (two gloo processes under torchrun)
+    write report trees that ``diff`` holds byte-identical to the
+    one-position tree, sample by sample across the layouts."""
+    from strainscan_tpu_torch.build import db as port_db
+    from strainscan_tpu_torch.parallel.sharded import make_mesh
+
+    _, port_root, meta = fixtures
+    port_db._TREE_CACHE.clear()   # load and upload the DB anew, as a process
+    assert scale_parity.run_ours(port_root, "cpu", l2_rows=1,
+                                 mesh=make_mesh(["cpu"] * 4)) == 0
+    name = "ours_cpu_1cpu_2x2_l2rows1"
+    with open(os.path.join(port_root, "parity", name + ".json")) as f:
+        res = json.load(f)
+    assert res["mesh"]["shape"] == [2, 2] and res["batch"] is None
+    assert res["main_routes"] == ["single"]      # 142,076 keys < the gate
+    assert res["l2_mesh_opened"]
+    assert scale_parity.run_procs(port_root, 2, "cpu") == 0
+    with open(os.path.join(port_root, "parity",
+                           "ours_cpu_2proc.json")) as f:
+        procs = json.load(f)
+    assert [r["process"] for r in procs["ranks"]] == [[0, 2], [1, 2]]
+    for rank in procs["ranks"]:
+        assert rank["mesh"]["shape"] == [1, 1]
+        assert rank["count_routes"] == ["single"]
+        assert not rank["l2_mesh_opened"]     # several processes: never
+    for rank in procs["ranks"]:
+        assert sorted(rank["samples"]) == sorted(meta["samples"])
+        for v in rank["samples"].values():
+            assert v["ok"] and v["count_s"] > 0
+            assert len(v["merge_s"]) == len(v["wait_s"]) >= 1
+    for other in (name, "ours_cpu_2proc"):
+        assert scale_parity.run_diff(
+            ours_cpu, os.path.join(port_root, "parity", other),
+            port_root) == 0, other
+    with open(os.path.join(port_root, "parity",
+                           "diff_ours_cpu_ours_cpu_2proc.json")) as f:
+        res = json.load(f)
+    assert set(res["samples"]) == {f"{p}/{s}" for s in meta["samples"]
+                                   for p in ("cold", "warm", "batch",
+                                             "rank0", "rank1")} | {
+        f"process/{SHARED[0]}"}
+    assert res["samples"]["rank1/deep"]["against"] == ["batch/deep",
+                                                       "rank1/deep"]
