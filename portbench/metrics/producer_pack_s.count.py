@@ -1,0 +1,11 @@
+"""``producer_pack_s.count``: seconds per sample of the program's
+``count/pack`` spans (each ``prepare_batch`` in the producer thread:
+shaping, packing and pinning a batch), summed per sample, averaged over
+the window's samples (``portbench/spans.py`` lays the program's span
+ring over the trace)."""
+
+from portbench import spans
+
+
+def read(obs):
+    return spans.per_sample(obs, "count/pack")

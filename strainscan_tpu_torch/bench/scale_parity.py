@@ -18,8 +18,8 @@ in one process: a cold pass (the first sample loads the DB and uploads its
 table), a warm pass over the same samples, one ``batch-identify`` over all
 of them through ``cli.main``, and one ``python -m strainscan_tpu_torch.cli
 identify`` of the first sample in a fresh process.  It keeps each sample's
-wall seconds, its ``identify/*`` and ``l2/*`` phase seconds, the seconds of
-the L2 union count, the count kernels' launches (``ops.probe.LAUNCHES``),
+wall seconds, its ``identify/*`` phase seconds, the seconds of each L2
+union count, the count kernels' launches (``ops.probe.LAUNCHES``),
 the tables uploaded, every stream-end fetch (``ops.count.FETCHES``: route,
 d2h bytes, ``slot_of_id`` upload) with the main count's ``finish_s``, and
 the host's resident set, in
@@ -109,23 +109,39 @@ def sample_paths(root: str, meta: dict) -> dict:
 _RESIDENT: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
 
 
+UNION = "identify/l2_vote/union_count"
+
+
+def _in_union() -> bool:
+    """Whether the L2 union count's phase is open in this context."""
+    from strainscan_tpu_torch import timing
+
+    s = timing.current()
+    while s is not None and s.name != UNION:
+        s = s.up
+    return s is not None
+
+
 @contextlib.contextmanager
 def instrument(rec: dict):
     """While the body runs, append the key count of every fp table
     uploaded to a device (a sharded pipeline's shards count as one
-    upload) to ``rec["uploads_keys"]``, the seconds of every L2 union
-    count to ``rec["union_count_s"]``, the pipeline of every count's finish
-    (``sharded`` or ``single``, with its position in ``ops.count.FETCHES``)
-    to ``rec["count_routes"]`` and every call of the L2 mesh gate to
-    ``rec["l2_mesh"]``, and add the kernel launches of the L2 union counts
-    into ``rec["union_launches"]``.  Yields the set of the positions in
+    upload) to ``rec["uploads_keys"]``, the pipeline of every count's
+    finish (``sharded`` or ``single``, with its position in
+    ``ops.count.FETCHES``) to ``rec["count_routes"]`` and every call of
+    the L2 mesh gate to ``rec["l2_mesh"]``, and add the kernel launches of
+    the L2 union counts (those since the last finish, at a finish inside
+    the phase ``identify/l2_vote/union_count``) into
+    ``rec["union_launches"]``; on leaving, the seconds of every L2 union
+    count (that phase's spans, ``timing.SPANS``) go to
+    ``rec["union_count_s"]``.  Yields the set of the positions in
     ``ops.count.FETCHES`` of the L2 union counts' fetches."""
-    from strainscan_tpu_torch.identify import vote
+    from strainscan_tpu_torch import timing
     from strainscan_tpu_torch.ops import count as ops_count
     from strainscan_tpu_torch.ops import probe
     from strainscan_tpu_torch.parallel import sharded as psh
 
-    upload, union = ops_count.fp_table_to_device, vote._count_union
+    upload = ops_count.fp_table_to_device
     gate, sharded = psh.l2_mesh, psh.ShardedCountPipeline
     saved = {(cls, name): getattr(cls, name) for cls, name in (
         (ops_count.CountPipeline, "finish"), (sharded, "finish"),
@@ -133,6 +149,8 @@ def instrument(rec: dict):
     rec.update(uploads_keys=[], union_count_s=[], union_launches={},
                count_routes=[], l2_mesh=[])
     union_at: set = set()
+    launched = dict(probe.LAUNCHES)
+    since = time.perf_counter_ns()
 
     def counted_upload(fpt, device):
         table = upload(fpt, device)
@@ -148,8 +166,18 @@ def instrument(rec: dict):
 
     def routed(cls, route):
         def finish(self):
-            rec["count_routes"].append((len(ops_count.FETCHES), route))
-            return saved[cls, "finish"](self)
+            at = len(ops_count.FETCHES)
+            rec["count_routes"].append((at, route))
+            out = saved[cls, "finish"](self)
+            if _in_union():
+                union_at.update(range(at, len(ops_count.FETCHES)))
+                for name, n in probe.LAUNCHES.items():
+                    if n > launched[name]:
+                        rec["union_launches"][name] = (
+                            rec["union_launches"].get(name, 0) + n
+                            - launched[name])
+            launched.update(probe.LAUNCHES)
+            return out
         return finish
 
     def gated(device, n_rows, min_rows):
@@ -158,21 +186,7 @@ def instrument(rec: dict):
                                "opened": mesh is not None})
         return mesh
 
-    def timed_union(*args, **kw):
-        before = dict(probe.LAUNCHES)
-        n0 = len(ops_count.FETCHES)
-        t0 = time.perf_counter()
-        out = union(*args, **kw)
-        rec["union_count_s"].append(time.perf_counter() - t0)
-        union_at.update(range(n0, len(ops_count.FETCHES)))
-        for name, n in probe.LAUNCHES.items():
-            if n > before[name]:
-                rec["union_launches"][name] = (
-                    rec["union_launches"].get(name, 0) + n - before[name])
-        return out
-
     ops_count.fp_table_to_device = counted_upload
-    vote._count_union = timed_union
     psh.l2_mesh = gated
     sharded._ensure_device_state = shard_upload
     ops_count.CountPipeline.finish = routed(ops_count.CountPipeline,
@@ -182,10 +196,11 @@ def instrument(rec: dict):
         yield union_at
     finally:
         ops_count.fp_table_to_device = upload
-        vote._count_union = union
         psh.l2_mesh = gate
         for (cls, name), fn in saved.items():
             setattr(cls, name, fn)
+        rec["union_count_s"] = [s.seconds for s in timing.SPANS
+                                if s.name == UNION and s.t0 >= since]
 
 
 def measured(fn, device: str) -> dict:
@@ -223,7 +238,7 @@ def measured(fn, device: str) -> dict:
                for i, f in enumerate(ops_count.FETCHES)]
     main = [f for f in fetches if f["count"] == "main"]
     rec.update(phases={k: v for k, v in PHASE_TIMES.items()
-                       if k.startswith(("identify/", "l2/"))},
+                       if k.startswith("identify/")},
                launches={k: v for k, v in probe.LAUNCHES.items() if v},
                fetches=fetches, finish_s=sum(f["s"] for f in main),
                d2h_bytes=sum(f["d2h_bytes"] for f in main),
@@ -698,11 +713,11 @@ def trace_summary(events: list, top: int = 12) -> dict:
 
 def run_trace(root: str, sample: str) -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from strainscan_tpu_torch.bench import card_line
     from strainscan_tpu_torch.config import IdentifyConfig
-    from strainscan_tpu_torch.identify import pipeline, vote
+    from strainscan_tpu_torch.identify import pipeline
 
     meta = load_meta(root)
     db = os.path.join(root, "DB")
@@ -713,27 +728,13 @@ def run_trace(root: str, sample: str) -> int:
     # warm: the DB, its device table and the L2 clusters resident
     pipeline.run_identify(fq, "", db, os.path.join(out, "warmup"), device,
                           IdentifyConfig())
-    phase, union = pipeline.phase, vote._count_union
-
-    @contextlib.contextmanager
-    def marked(name):
-        with record_function(name), phase(name):
-            yield
-
-    def marked_union(*args, **kw):
-        with record_function("identify/l2_vote/union_count"):
-            return union(*args, **kw)
-
+    # the phases' spans mark their ranges in the trace themselves
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    pipeline.phase, vote._count_union = marked, marked_union
-    try:
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            pipeline.run_identify(fq, "", db, os.path.join(out, "traced"),
-                                  device, IdentifyConfig())
-            wall = time.perf_counter() - t0
-    finally:
-        pipeline.phase, vote._count_union = phase, union
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        pipeline.run_identify(fq, "", db, os.path.join(out, "traced"),
+                              device, IdentifyConfig())
+        wall = time.perf_counter() - t0
     path = out + ".pt.trace.json"
     prof.export_chrome_trace(path)
     with open(path) as f:

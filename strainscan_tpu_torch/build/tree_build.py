@@ -159,6 +159,11 @@ def _hierarchy(leaf_ids: List[int], cls_sim: np.ndarray):
 
 
 # ------------------------------------------------------------------ main
+# the build's phases timed by phase_acc, cleared at the start of each build
+ACC_PHASES = ("tree_build/weak_leaf_merge", "tree_build/propagate",
+              "tree_build/node_specific", "tree_build/reconstruct")
+
+
 def build_cst(
     names: Sequence[str],
     dist: np.ndarray,
@@ -179,6 +184,11 @@ def build_cst(
     fna: Dict[int, List[str]] = {
         cid: list(members) for cid, members in recls.items() if members
     }
+    from strainscan_tpu_torch.timing import PHASE_TIMES, phase, phase_acc
+
+    # this build's seconds only (phase_acc adds to what a last build left)
+    for name in ACC_PHASES:
+        PHASE_TIMES.pop(name, None)
 
     # ------------------------------------------------ degenerate: 1 leaf
     if len(fna) == 1:
@@ -201,8 +211,6 @@ def build_cst(
     # ------------------------------------------- initial tree + leaf sets
     def member_rows(cid):
         return np.array([name_idx[s] for s in fna[cid]])
-
-    from strainscan_tpu_torch.timing import phase
 
     leaf_ids = sorted(fna)
     with phase("tree_build/hierarchy"):
@@ -289,305 +297,301 @@ def build_cst(
     # distinct k-mers of leaf i = Lv[i] minus every other leaf's Lv|spec
     # (Build_tree.py:414-424); global-count formulation: a Lv[i] k-mer is
     # distinct iff it appears in exactly one leaf's Lv|spec universe.
-    import time as _time
-
-    from strainscan_tpu_torch.timing import PHASE_TIMES
-    _t0 = _time.time()
-    recls_happened = False
-    check = list(leaf_ids)
-    # leaf-level similarity matrix maintained under merges
-    lsim = cls_sim.copy()
-    lsim_ids = list(leaf_ids)
-    while True:
-        # distinct k-mers of leaf i = Lv[i] minus Lv|spec of every leaf at
-        # the same or greater depth (get_leaf_union only unions same-depth
-        # siblings and deeper leaves, Build_tree.py:133-155); shallower
-        # leaves are NOT subtracted.  Formulation: walking depths deepest
-        # first with a cumulative per-id occurrence counter, a Lv[cid]
-        # k-mer is distinctive iff its count among leaves at depth >= its
-        # own is exactly 1 (its own occurrence).
-        ldepth = {l: tree.depth(l) for l in lsim_ids}
-        check_set = set(check)
-        weak = []
-        cnt = np.zeros(n_univ, dtype=np.int32)
-        for d in sorted({ldepth[l] for l in lsim_ids}, reverse=True):
-            group = [l for l in lsim_ids if ldepth[l] == d]
-            for l in group:
-                cnt[Lv[l]] += 1
-                cnt[spec[l]] += 1
-            for cid in group:
-                if cid not in check_set:
-                    continue
-                mine = Lv[cid]
-                distinct = int((cnt[mine] == 1).sum()) if mine.size else 0
-                log(f"leaf {cid}: {distinct} distinctive k-mers")
-                if distinct < cfg.min_kmer:
-                    weak.append(cid)
-        if not weak:
-            break
-        recls_happened = True
-        new_check = []
-        while weak:
-            a = weak.pop(0)
-            r = lsim_ids.index(a)
-            c = int(np.argmax(lsim[r]))
-            b = lsim_ids[c]
-            new_id = max(max(lsim_ids), max(tree.parent)) + 1
-            log(f"merging weak leaf {a} with {b} -> {new_id}")
-            fna[new_id] = fna.pop(a) + fna.pop(b)
-            for x in (a, b):
-                Lv.pop(x, None)
-                spec.pop(x, None)
-                if x in weak:
-                    weak.remove(x)
-            # single-linkage row-max update (Build_tree.py:449-466)
-            new_row = np.maximum(lsim[r], lsim[c])
-            keep = [x for x in range(len(lsim_ids)) if x not in (r, c)]
-            lsim = lsim[np.ix_(keep, keep)]
-            new_row = new_row[keep]
-            lsim = np.pad(lsim, ((0, 1), (0, 1)), constant_values=-1.0)
-            lsim[-1, :-1] = new_row
-            lsim[:-1, -1] = new_row
-            lsim_ids = [lsim_ids[x] for x in keep] + [new_id]
-            new_check.append(new_id)
-        tree = _hierarchy(lsim_ids, lsim) if len(lsim_ids) > 1 else None
-        if tree is None:
-            # everything merged into one cluster: degenerate rebuild
-            only = lsim_ids[0]
-            single = {only: fna[only]}
-            return build_cst(names, dist, single, genome_of, cfg, use_native,
-                             log)
-        for cid in lsim_ids:
-            if cid not in Lv:
-                lv_u, sp_u = _leaf_kmer_stats(
-                    [genome_of[s] for s in fna[cid]], k, cfg.alpha_ratio,
-                    use_native, kmode, kdrop)
-                Lv[cid], spec[cid] = to_ids(lv_u), to_ids(sp_u)
-        check = new_check
-    PHASE_TIMES["tree_build/weak_leaf_merge"] = _time.time() - _t0
-    _t0 = _time.time()
-
-    # ------------------------------------------------------ id remapping
-    # leaves 1..L, internal L+1.. in BFS order (Build_tree.py:471-491);
-    # identity when no re-clustering happened.
-    bfs = tree.nodes_bfs()
-    leaves = set(tree.leaves())
-    if recls_happened:
-        id_map: Dict[int, int] = {}
-        nl = 1
-        ni = len(leaves) + 1
-        for n in bfs:
-            if n in leaves:
-                id_map[n] = nl
-                nl += 1
-            else:
-                id_map[n] = ni
-                ni += 1
-    else:
-        id_map = {n: n for n in bfs}
-    new_tree = BinTree()
-    new_tree.add_root(id_map[tree.root])
-    for n in bfs:
-        if n in tree.children:
-            a, b = tree.children[n]
-            new_tree.children[id_map[n]] = (id_map[a], id_map[b])
-            new_tree.parent[id_map[a]] = id_map[n]
-            new_tree.parent[id_map[b]] = id_map[n]
-    Lv = {id_map[c]: v for c, v in Lv.items()}
-    spec = {id_map[c]: v for c, v in spec.items()}
-    fna = {id_map[c]: v for c, v in fna.items()}
-    tree = new_tree
-    leaves = set(tree.leaves())
-    depth = {n: tree.depth(n) for n in tree.nodes()}
-
-    # --------------------------------------- bottom-up unique propagation
-    bfs = tree.nodes_bfs()
-    uniq: Dict[int, np.ndarray] = {}
-    desc_leaves: Dict[int, List[int]] = {}
-    for n in reversed(bfs):
-        if n in leaves:
-            uniq[n] = Lv[n]
-            desc_leaves[n] = [n]
-        else:
-            a, b = tree.children[n]
-            inter = _intersect(uniq[a], uniq[b])
-            uniq[n] = inter
-            uniq[a] = _setdiff(uniq[a], inter)
-            uniq[b] = _setdiff(uniq[b], inter)
-            desc_leaves[n] = desc_leaves[a] + desc_leaves[b]
-
-    # global duplicate sweep (equivalent of Build_tree.py:562-585; root is
-    # exempt in the reference but can have no duplicates by construction)
-    dup_cnt = np.zeros(n_univ, dtype=np.int32)
-    for n in bfs:
-        dup_cnt[uniq[n]] += 1
-    kept: Dict[int, np.ndarray] = {}
-    for n in bfs:
-        mine = uniq[n]
-        kept[n] = mine[dup_cnt[mine] == 1] if mine.size else mine
-
-    # rare-k-mer subtraction: drop k from node n when k is in spec[j] of a
-    # leaf outside n's descendant leaves (Build_tree.py:577-585)
-    spec_concat = np.concatenate([spec[l] for l in leaves]) if leaves else \
-        np.empty(0, np.int32)
-    spec_leaf = np.concatenate(
-        [np.full(spec[l].size, l, dtype=np.int64) for l in leaves]
-    ) if leaves else np.empty(0, np.int64)
-    order = np.argsort(spec_concat, kind="stable")
-    spec_sorted = spec_concat[order]
-    spec_leaf_sorted = spec_leaf[order]
-    max_leaf = max(leaves) if leaves else 0
-
-    def drop_outside_spec(node, kmers):
-        """Drop k-mers with any spec occurrence outside the node's
-        descendant leaves.  Gathers only the O(sum of per-k-mer spec
-        occurrences) relevant entries instead of scanning the whole spec
-        table per node."""
-        if kmers.size == 0 or spec_sorted.size == 0:
-            return kmers
-        start = np.searchsorted(spec_sorted, kmers, side="left")
-        end = np.searchsorted(spec_sorted, kmers, side="right")
-        lens = end - start
-        tot = int(lens.sum())
-        if tot == 0:
-            return kmers
-        inside = np.zeros(max_leaf + 1, dtype=bool)
-        inside[np.array(desc_leaves[node])] = True
-        pos = np.repeat(start, lens) + _ragged_arange(lens)
-        outside = ~inside[spec_leaf_sorted[pos]]
-        survives = np.ones(kmers.size, dtype=bool)
-        survives[np.repeat(np.arange(kmers.size), lens)[outside]] = False
-        return kmers[survives]
-
-    PHASE_TIMES["tree_build/propagate"] = _time.time() - _t0
-    _t0 = _time.time()
-    overload = len(leaves) > cfg.max_cls_recon
-    rebuilt: List[int] = []
-    node_sets: Dict[int, np.ndarray] = {}
-    for n in reversed(bfs):
-        kmer_t = drop_outside_spec(n, kept[n])
-        if kmer_t.size < cfg.min_kmer and not overload:
-            rebuilt.append(n)
-            continue
-        if kmer_t.size > cfg.max_kmer:
-            kmer_t = np.sort(
-                rng.choice(kmer_t, size=cfg.max_kmer, replace=False))
-        node_sets[n] = kmer_t
-    PHASE_TIMES["tree_build/node_specific"] = _time.time() - _t0
-    _t0 = _time.time()
-
-    # --------------------------------------------------- reconstruction
-    overlap_info: Dict[int, Dict[int, np.ndarray]] = {}
-
-    # occurrence tables: every (k-mer id, leaf) pair sorted by id, so any
-    # per-node question ("which leaves carry these k-mers?") is a ragged
-    # gather of exactly the relevant rows — no per-node subtree unions.
-    def _occ_table(dicts):
-        ks, ls = [], []
-        for l in leaves:
-            for dct in dicts:
-                a = dct[l]
-                ks.append(a)
-                ls.append(np.full(a.size, l, dtype=np.int32))
-        kk = np.concatenate(ks) if ks else np.empty(0, np.int32)
-        ll = np.concatenate(ls) if ls else np.empty(0, np.int32)
-        o = np.argsort(kk, kind="stable")
-        return kk[o], ll[o]
-
-    def _gather_occ(table, kmer_t):
-        """(per-row kmer index, per-row leaf) of all table occurrences of
-        ``kmer_t``; rows are grouped by kmer index (ascending)."""
-        occ_k, occ_l = table
-        start = np.searchsorted(occ_k, kmer_t, side="left")
-        end = np.searchsorted(occ_k, kmer_t, side="right")
-        lens = end - start
-        tot = int(lens.sum())
-        if tot == 0:
-            return (np.empty(0, np.int64), np.empty(0, np.int32))
-        pos = np.repeat(start, lens) + _ragged_arange(lens)
-        kidx = np.repeat(np.arange(kmer_t.size, dtype=np.int64), lens)
-        return kidx, occ_l[pos]
-
-    if rebuilt:
-        ldepth_arr = np.full(max_leaf + 1, -1, dtype=np.int32)
-        for l in leaves:
-            ldepth_arr[l] = depth[l]
-        occ_cache: Dict[str, tuple] = {}
-
-        def occ_all():
-            # lazy: built only when a reconstructed node actually has a
-            # non-empty leaf intersection (two big argsorts otherwise)
-            if "all" not in occ_cache:
-                occ_cache["all"] = _occ_table([Lv, spec])
-            return occ_cache["all"]
-
-        def occ_lv():
-            if "lv" not in occ_cache:
-                occ_cache["lv"] = _occ_table([Lv])
-            return occ_cache["lv"]
-
-        owner_cache: Dict[int, np.ndarray] = {}
-
-        def owner_at_depth(d):
-            """leaf -> its (unique) ancestor-or-self at depth ``d``, or -1
-            when the leaf is shallower than ``d``."""
-            if d not in owner_cache:
-                own = np.full(max_leaf + 1, -1, dtype=np.int64)
-                for l in leaves:
-                    node = l
-                    while node is not None and depth[node] > d:
-                        node = tree.parent.get(node)
-                    if node is not None and depth.get(node) == d:
-                        own[l] = node
-                owner_cache[d] = own
-            return owner_cache[d]
-
-    for n in rebuilt:
-        log(f"reconstructing node {n}")
-        dls = desc_leaves[n]
-        kmer_t = Lv[dls[0]]
-        for l in dls[1:]:
-            if kmer_t.size == 0:
+    with phase_acc("tree_build/weak_leaf_merge"):
+        recls_happened = False
+        check = list(leaf_ids)
+        # leaf-level similarity matrix maintained under merges
+        lsim = cls_sim.copy()
+        lsim_ids = list(leaf_ids)
+        single = None
+        while True:
+            # distinct k-mers of leaf i = Lv[i] minus Lv|spec of every leaf at
+            # the same or greater depth (get_leaf_union only unions same-depth
+            # siblings and deeper leaves, Build_tree.py:133-155); shallower
+            # leaves are NOT subtracted.  Formulation: walking depths deepest
+            # first with a cumulative per-id occurrence counter, a Lv[cid]
+            # k-mer is distinctive iff its count among leaves at depth >= its
+            # own is exactly 1 (its own occurrence).
+            ldepth = {l: tree.depth(l) for l in lsim_ids}
+            check_set = set(check)
+            weak = []
+            cnt = np.zeros(n_univ, dtype=np.int32)
+            for d in sorted({ldepth[l] for l in lsim_ids}, reverse=True):
+                group = [l for l in lsim_ids if ldepth[l] == d]
+                for l in group:
+                    cnt[Lv[l]] += 1
+                    cnt[spec[l]] += 1
+                for cid in group:
+                    if cid not in check_set:
+                        continue
+                    mine = Lv[cid]
+                    distinct = int((cnt[mine] == 1).sum()) if mine.size else 0
+                    log(f"leaf {cid}: {distinct} distinctive k-mers")
+                    if distinct < cfg.min_kmer:
+                        weak.append(cid)
+            if not weak:
                 break
-            kmer_t = _intersect(kmer_t, Lv[l])
-        # subtract same-depth other nodes' subtree unions (get_diff,
-        # Build_tree.py:191-225): a k-mer survives iff no Lv|spec
-        # occurrence lies under a different node of this depth (leaves
-        # shallower than this depth are owned by no same-depth node and
-        # do not subtract — get_diff's exact scope).
-        if kmer_t.size:
-            own = owner_at_depth(depth[n])
-            kidx, occ_leaves = _gather_occ(occ_all(), kmer_t)
-            owners = own[occ_leaves]
-            bad = (owners != -1) & (owners != n)
-            survives = np.ones(kmer_t.size, dtype=bool)
-            survives[kidx[bad]] = False
-            kmer_t = kmer_t[survives]
-        if kmer_t.size > cfg.max_kmer:
-            # prefer k-mers shared with the fewest shallower leaves
-            kidx, occ_leaves = _gather_occ(occ_lv(), kmer_t)
-            is_lower = ldepth_arr[occ_leaves] < depth[n]
-            cnt = np.bincount(kidx[is_lower],
-                              minlength=kmer_t.size).astype(np.int32)
-            order2 = np.lexsort((kmer_t, cnt))
-            kmer_t = np.sort(kmer_t[order2[: cfg.max_kmer]])
-        node_sets[n] = kmer_t
-        if kmer_t.size:
-            # overlap positions per shallower leaf (Build_tree.py:642-655)
-            kidx, occ_leaves = _gather_occ(occ_lv(), kmer_t)
-            is_lower = ldepth_arr[occ_leaves] < depth[n]
-            lh = occ_leaves[is_lower]
-            kp = kidx[is_lower]
-            o = np.argsort(lh, kind="stable")  # kp stays sorted per leaf
-            lh, kp = lh[o], kp[o]
-            seg = np.flatnonzero(np.diff(lh)) + 1
-            for s, e in zip(np.concatenate([[0], seg]),
-                            np.concatenate([seg, [lh.size]])):
-                if s < e:
-                    overlap_info.setdefault(int(lh[s]), {})[n] = \
-                        kp[s:e].astype(np.int32)
+            recls_happened = True
+            new_check = []
+            while weak:
+                a = weak.pop(0)
+                r = lsim_ids.index(a)
+                c = int(np.argmax(lsim[r]))
+                b = lsim_ids[c]
+                new_id = max(max(lsim_ids), max(tree.parent)) + 1
+                log(f"merging weak leaf {a} with {b} -> {new_id}")
+                fna[new_id] = fna.pop(a) + fna.pop(b)
+                for x in (a, b):
+                    Lv.pop(x, None)
+                    spec.pop(x, None)
+                    if x in weak:
+                        weak.remove(x)
+                # single-linkage row-max update (Build_tree.py:449-466)
+                new_row = np.maximum(lsim[r], lsim[c])
+                keep = [x for x in range(len(lsim_ids)) if x not in (r, c)]
+                lsim = lsim[np.ix_(keep, keep)]
+                new_row = new_row[keep]
+                lsim = np.pad(lsim, ((0, 1), (0, 1)), constant_values=-1.0)
+                lsim[-1, :-1] = new_row
+                lsim[:-1, -1] = new_row
+                lsim_ids = [lsim_ids[x] for x in keep] + [new_id]
+                new_check.append(new_id)
+            tree = _hierarchy(lsim_ids, lsim) if len(lsim_ids) > 1 else None
+            if tree is None:
+                # everything merged into one cluster: degenerate rebuild
+                only = lsim_ids[0]
+                single = {only: fna[only]}
+                break
+            for cid in lsim_ids:
+                if cid not in Lv:
+                    lv_u, sp_u = _leaf_kmer_stats(
+                        [genome_of[s] for s in fna[cid]], k, cfg.alpha_ratio,
+                        use_native, kmode, kdrop)
+                    Lv[cid], spec[cid] = to_ids(lv_u), to_ids(sp_u)
+            check = new_check
+    if single is not None:
+        return build_cst(names, dist, single, genome_of, cfg, use_native,
+                         log)
 
-    PHASE_TIMES["tree_build/reconstruct"] = _time.time() - _t0
+    with phase_acc("tree_build/propagate"):
+        # ------------------------------------------------------ id remapping
+        # leaves 1..L, internal L+1.. in BFS order (Build_tree.py:471-491);
+        # identity when no re-clustering happened.
+        bfs = tree.nodes_bfs()
+        leaves = set(tree.leaves())
+        if recls_happened:
+            id_map: Dict[int, int] = {}
+            nl = 1
+            ni = len(leaves) + 1
+            for n in bfs:
+                if n in leaves:
+                    id_map[n] = nl
+                    nl += 1
+                else:
+                    id_map[n] = ni
+                    ni += 1
+        else:
+            id_map = {n: n for n in bfs}
+        new_tree = BinTree()
+        new_tree.add_root(id_map[tree.root])
+        for n in bfs:
+            if n in tree.children:
+                a, b = tree.children[n]
+                new_tree.children[id_map[n]] = (id_map[a], id_map[b])
+                new_tree.parent[id_map[a]] = id_map[n]
+                new_tree.parent[id_map[b]] = id_map[n]
+        Lv = {id_map[c]: v for c, v in Lv.items()}
+        spec = {id_map[c]: v for c, v in spec.items()}
+        fna = {id_map[c]: v for c, v in fna.items()}
+        tree = new_tree
+        leaves = set(tree.leaves())
+        depth = {n: tree.depth(n) for n in tree.nodes()}
+
+        # --------------------------------------- bottom-up unique propagation
+        bfs = tree.nodes_bfs()
+        uniq: Dict[int, np.ndarray] = {}
+        desc_leaves: Dict[int, List[int]] = {}
+        for n in reversed(bfs):
+            if n in leaves:
+                uniq[n] = Lv[n]
+                desc_leaves[n] = [n]
+            else:
+                a, b = tree.children[n]
+                inter = _intersect(uniq[a], uniq[b])
+                uniq[n] = inter
+                uniq[a] = _setdiff(uniq[a], inter)
+                uniq[b] = _setdiff(uniq[b], inter)
+                desc_leaves[n] = desc_leaves[a] + desc_leaves[b]
+
+        # global duplicate sweep (equivalent of Build_tree.py:562-585; root is
+        # exempt in the reference but can have no duplicates by construction)
+        dup_cnt = np.zeros(n_univ, dtype=np.int32)
+        for n in bfs:
+            dup_cnt[uniq[n]] += 1
+        kept: Dict[int, np.ndarray] = {}
+        for n in bfs:
+            mine = uniq[n]
+            kept[n] = mine[dup_cnt[mine] == 1] if mine.size else mine
+
+        # rare-k-mer subtraction: drop k from node n when k is in spec[j] of a
+        # leaf outside n's descendant leaves (Build_tree.py:577-585)
+        spec_concat = (np.concatenate([spec[l] for l in leaves]) if leaves
+                       else np.empty(0, np.int32))
+        spec_leaf = np.concatenate(
+            [np.full(spec[l].size, l, dtype=np.int64) for l in leaves]
+        ) if leaves else np.empty(0, np.int64)
+        order = np.argsort(spec_concat, kind="stable")
+        spec_sorted = spec_concat[order]
+        spec_leaf_sorted = spec_leaf[order]
+        max_leaf = max(leaves) if leaves else 0
+
+        def drop_outside_spec(node, kmers):
+            """Drop k-mers with any spec occurrence outside the node's
+            descendant leaves.  Gathers only the O(sum of per-k-mer spec
+            occurrences) relevant entries instead of scanning the whole spec
+            table per node."""
+            if kmers.size == 0 or spec_sorted.size == 0:
+                return kmers
+            start = np.searchsorted(spec_sorted, kmers, side="left")
+            end = np.searchsorted(spec_sorted, kmers, side="right")
+            lens = end - start
+            tot = int(lens.sum())
+            if tot == 0:
+                return kmers
+            inside = np.zeros(max_leaf + 1, dtype=bool)
+            inside[np.array(desc_leaves[node])] = True
+            pos = np.repeat(start, lens) + _ragged_arange(lens)
+            outside = ~inside[spec_leaf_sorted[pos]]
+            survives = np.ones(kmers.size, dtype=bool)
+            survives[np.repeat(np.arange(kmers.size), lens)[outside]] = False
+            return kmers[survives]
+
+    with phase_acc("tree_build/node_specific"):
+        overload = len(leaves) > cfg.max_cls_recon
+        rebuilt: List[int] = []
+        node_sets: Dict[int, np.ndarray] = {}
+        for n in reversed(bfs):
+            kmer_t = drop_outside_spec(n, kept[n])
+            if kmer_t.size < cfg.min_kmer and not overload:
+                rebuilt.append(n)
+                continue
+            if kmer_t.size > cfg.max_kmer:
+                kmer_t = np.sort(
+                    rng.choice(kmer_t, size=cfg.max_kmer, replace=False))
+            node_sets[n] = kmer_t
+
+    with phase_acc("tree_build/reconstruct"):
+        # --------------------------------------------------- reconstruction
+        overlap_info: Dict[int, Dict[int, np.ndarray]] = {}
+
+        # occurrence tables: every (k-mer id, leaf) pair sorted by id, so any
+        # per-node question ("which leaves carry these k-mers?") is a ragged
+        # gather of exactly the relevant rows — no per-node subtree unions.
+        def _occ_table(dicts):
+            ks, ls = [], []
+            for l in leaves:
+                for dct in dicts:
+                    a = dct[l]
+                    ks.append(a)
+                    ls.append(np.full(a.size, l, dtype=np.int32))
+            kk = np.concatenate(ks) if ks else np.empty(0, np.int32)
+            ll = np.concatenate(ls) if ls else np.empty(0, np.int32)
+            o = np.argsort(kk, kind="stable")
+            return kk[o], ll[o]
+
+        def _gather_occ(table, kmer_t):
+            """(per-row kmer index, per-row leaf) of all table occurrences of
+            ``kmer_t``; rows are grouped by kmer index (ascending)."""
+            occ_k, occ_l = table
+            start = np.searchsorted(occ_k, kmer_t, side="left")
+            end = np.searchsorted(occ_k, kmer_t, side="right")
+            lens = end - start
+            tot = int(lens.sum())
+            if tot == 0:
+                return (np.empty(0, np.int64), np.empty(0, np.int32))
+            pos = np.repeat(start, lens) + _ragged_arange(lens)
+            kidx = np.repeat(np.arange(kmer_t.size, dtype=np.int64), lens)
+            return kidx, occ_l[pos]
+
+        if rebuilt:
+            ldepth_arr = np.full(max_leaf + 1, -1, dtype=np.int32)
+            for l in leaves:
+                ldepth_arr[l] = depth[l]
+            occ_cache: Dict[str, tuple] = {}
+
+            def occ_all():
+                # lazy: built only when a reconstructed node actually has a
+                # non-empty leaf intersection (two big argsorts otherwise)
+                if "all" not in occ_cache:
+                    occ_cache["all"] = _occ_table([Lv, spec])
+                return occ_cache["all"]
+
+            def occ_lv():
+                if "lv" not in occ_cache:
+                    occ_cache["lv"] = _occ_table([Lv])
+                return occ_cache["lv"]
+
+            owner_cache: Dict[int, np.ndarray] = {}
+
+            def owner_at_depth(d):
+                """leaf -> its (unique) ancestor-or-self at depth ``d``, or -1
+                when the leaf is shallower than ``d``."""
+                if d not in owner_cache:
+                    own = np.full(max_leaf + 1, -1, dtype=np.int64)
+                    for l in leaves:
+                        node = l
+                        while node is not None and depth[node] > d:
+                            node = tree.parent.get(node)
+                        if node is not None and depth.get(node) == d:
+                            own[l] = node
+                    owner_cache[d] = own
+                return owner_cache[d]
+
+        for n in rebuilt:
+            log(f"reconstructing node {n}")
+            dls = desc_leaves[n]
+            kmer_t = Lv[dls[0]]
+            for l in dls[1:]:
+                if kmer_t.size == 0:
+                    break
+                kmer_t = _intersect(kmer_t, Lv[l])
+            # subtract same-depth other nodes' subtree unions (get_diff,
+            # Build_tree.py:191-225): a k-mer survives iff no Lv|spec
+            # occurrence lies under a different node of this depth (leaves
+            # shallower than this depth are owned by no same-depth node and
+            # do not subtract — get_diff's exact scope).
+            if kmer_t.size:
+                own = owner_at_depth(depth[n])
+                kidx, occ_leaves = _gather_occ(occ_all(), kmer_t)
+                owners = own[occ_leaves]
+                bad = (owners != -1) & (owners != n)
+                survives = np.ones(kmer_t.size, dtype=bool)
+                survives[kidx[bad]] = False
+                kmer_t = kmer_t[survives]
+            if kmer_t.size > cfg.max_kmer:
+                # prefer k-mers shared with the fewest shallower leaves
+                kidx, occ_leaves = _gather_occ(occ_lv(), kmer_t)
+                is_lower = ldepth_arr[occ_leaves] < depth[n]
+                cnt = np.bincount(kidx[is_lower],
+                                  minlength=kmer_t.size).astype(np.int32)
+                order2 = np.lexsort((kmer_t, cnt))
+                kmer_t = np.sort(kmer_t[order2[: cfg.max_kmer]])
+            node_sets[n] = kmer_t
+            if kmer_t.size:
+                # overlap positions per shallower leaf (Build_tree.py:642-655)
+                kidx, occ_leaves = _gather_occ(occ_lv(), kmer_t)
+                is_lower = ldepth_arr[occ_leaves] < depth[n]
+                lh = occ_leaves[is_lower]
+                kp = kidx[is_lower]
+                o = np.argsort(lh, kind="stable")  # kp stays sorted per leaf
+                lh, kp = lh[o], kp[o]
+                seg = np.flatnonzero(np.diff(lh)) + 1
+                for s, e in zip(np.concatenate([[0], seg]),
+                                np.concatenate([seg, [lh.size]])):
+                    if s < e:
+                        overlap_info.setdefault(int(lh[s]), {})[n] = \
+                            kp[s:e].astype(np.int32)
+
     # --------------------------------------------------------- assemble
     nonempty = [node_sets[n] for n in bfs
                 if node_sets.get(n) is not None and node_sets[n].size]

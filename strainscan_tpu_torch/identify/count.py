@@ -5,7 +5,9 @@ reference library/identify.py:73-103).  Parse and pack run in a producer
 thread (``utils.prefetch``), and so does the sharded pipeline's copy to its
 devices (``ShardedCountPipeline.ship``); the main thread launches the
 count (and copies the batch first on the single-device pipeline, which
-copies on a side stream of its own).
+copies on a side stream of its own).  Spans (``timing``): ``count/sample``
+around each count, ``count/parse`` and ``count/pack`` per batch in the
+producer, ``count/wait`` per wait of the main thread for a batch.
 
 * One device (a 1 x 1 mesh): :class:`..ops.count.CountPipeline`.
 * A mesh of several positions, one process, the DB's key array given and a
@@ -24,6 +26,7 @@ from typing import Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
+from strainscan_tpu_torch import timing
 from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.index.hashtable import FpTable, KmerTable
 from strainscan_tpu_torch.io import fastx
@@ -73,12 +76,14 @@ def iter_payloads(pipe, fq_paths: PathLike,
     batch of N processes), parsed and packed in a producer thread
     (``pipe.prepare_batch``) and, where the pipeline has ``ship``, copied
     to its devices in that thread too, as the JAX package's
-    ``count_sample`` ships them; ready for ``pipe.add_prepared``."""
+    ``count_sample`` ships them; ready for ``pipe.add_prepared``.  Each
+    parse and each ``prepare_batch`` is a span (``count/parse``,
+    ``count/pack``)."""
     pidx, pcount = dist.process_info()
-    batches = fastx.read_batches(
+    batches = timing.timed_iter(fastx.read_batches(
         fq_paths, batch=cfg.read_batch, maxlen=cfg.max_read_len,
-        k=pipe.k, use_native=use_native)
-    prepared = (pipe.prepare_batch(b) for bi, b in enumerate(batches)
+        k=pipe.k, use_native=use_native), "count/parse")
+    prepared = (_prepare(pipe, b) for bi, b in enumerate(batches)
                 if bi % pcount == pidx)
     ship = getattr(pipe, "ship", None)
     if ship is None:
@@ -86,12 +91,19 @@ def iter_payloads(pipe, fq_paths: PathLike,
     return _shipped(prepared, ship)
 
 
+def _prepare(pipe, codes: np.ndarray) -> List[Payload]:
+    """``pipe.prepare_batch(codes)`` in a ``count/pack`` span."""
+    with timing.span("count/pack"):
+        return pipe.prepare_batch(codes)
+
+
 def _shipped(prepared, ship) -> Iterator:
     """``ship`` of each of ``prepared`` in the producer thread, with at
     most ``PREFETCH_DEPTH + 1`` shipped batches alive: the one the caller
     counts and those queued or in the copy.  The producer takes a slot
     before it ships; a slot frees when the caller asks for the next batch,
-    having launched the count of the last one."""
+    having launched the count of the last one.  The producer's context is
+    this call's (``prefetch_iter``)."""
     slots = threading.Semaphore(PREFETCH_DEPTH + 1)
 
     def produce():
@@ -99,9 +111,12 @@ def _shipped(prepared, ship) -> Iterator:
             slots.acquire()
             yield ship(payloads)
 
-    for shipped in prefetch_iter(produce(), PREFETCH_DEPTH):
-        yield shipped
-        slots.release()
+    def released(ready):
+        for shipped in ready:
+            yield shipped
+            slots.release()
+
+    return released(prefetch_iter(produce(), PREFETCH_DEPTH))
 
 
 def count_sample(
@@ -118,17 +133,22 @@ def count_sample(
 
     ``device``: a device (``"cuda:0"``, ``"cpu"``), a device list or a
     :class:`Mesh` (see ``resolve_mesh``).  ``keys``: the table's key array
-    in id order, which the sharded pipeline is built from."""
-    mesh = resolve_mesh(device)
-    pcount = dist.process_info()[1]
-    if (keys is not None and pcount == 1 and mesh.size > 1
-            and keys.size >= cfg.shard_min_kmers):
-        pipe = _sharded_pipeline(keys, table.k, canonical, mesh)
-    else:
-        pipe = CountPipeline(table, mesh.first, canonical=canonical)
-    for payloads in iter_payloads(pipe, fq_paths, cfg, use_native):
-        pipe.add_prepared(payloads)
-    counts = pipe.finish()
-    if pcount > 1:
-        counts = dist.merge_counts(counts)
-    return counts
+    in id order, which the sharded pipeline is built from.
+
+    The count is a span ``count/sample``, each wait for the producer's
+    next batch a ``count/wait`` span."""
+    with timing.span("count/sample"):
+        mesh = resolve_mesh(device)
+        pcount = dist.process_info()[1]
+        if (keys is not None and pcount == 1 and mesh.size > 1
+                and keys.size >= cfg.shard_min_kmers):
+            pipe = _sharded_pipeline(keys, table.k, canonical, mesh)
+        else:
+            pipe = CountPipeline(table, mesh.first, canonical=canonical)
+        for payloads in timing.timed_iter(
+                iter_payloads(pipe, fq_paths, cfg, use_native), "count/wait"):
+            pipe.add_prepared(payloads)
+        counts = pipe.finish()
+        if pcount > 1:
+            counts = dist.merge_counts(counts)
+        return counts

@@ -29,10 +29,16 @@ over dense count arrays instead of k-mer string dicts:
   candidate, the evident intent) and qualified-parent best leaf
   (identify.py:473-487) — the latter only for standard DBs, because
   identify_low_mem.py has no qualified-parent fallback.
+
+The node-profile gather and its statistics (``_match_node``,
+``_piecewise``) add up in ``CSTSearch.match_ns``, which
+:func:`identify_cluster` adds to the phase ``identify/cst_search/match``
+once per search.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -40,6 +46,9 @@ import scipy.stats as st
 
 from strainscan_tpu_torch.build.db import TreeDB
 from strainscan_tpu_torch.config import IdentifyConfig
+from strainscan_tpu_torch.timing import add_seconds
+
+MATCH = "identify/cst_search/match"
 
 
 class _NodeData:
@@ -66,6 +75,9 @@ class CSTSearch:
         self.length: Dict[int, float] = {}
         self.cov: Dict[int, float] = {}
         self.abundance: Dict[int, float] = {}
+        # ns spent in _match_node and _piecewise (a phase_acc per call
+        # would cost more than their work on a small node)
+        self.match_ns = 0
         self._label_nodes()
 
     # -------------------------------------------------- node categories
@@ -100,21 +112,25 @@ class CSTSearch:
         return profile[profile < cutoff]
 
     def _match_node(self, node: int) -> Tuple[int, np.ndarray]:
+        t0 = time.perf_counter_ns()
         ids = self.db.node_kmers.get(node, np.empty(0, np.int32))
         prof = self.counts[ids]
         prof = prof[prof > 0]
         if prof.size:
             prof = self._del_outlier(prof)
+        self.match_ns += time.perf_counter_ns() - t0
         return ids.size, prof
 
     def _piecewise(self, cov_cutoff: float, cov: float, label,
                    profile: np.ndarray) -> float:
         """identify.py:130-136: halve the cutoff for small nodes."""
+        t0 = time.perf_counter_ns()
         if label in (1, "o1"):
             cov_cutoff = cov_cutoff / 2
-        if cov >= cov_cutoff and profile.size:
-            return float(np.mean(profile))
-        return 0.0
+        ab = (float(np.mean(profile)) if cov >= cov_cutoff and profile.size
+              else 0.0)
+        self.match_ns += time.perf_counter_ns() - t0
+        return ab
 
     # -------------------------------------------------------- uniq path
     def _uniq_path(self, node: int) -> List[int]:
@@ -472,4 +488,7 @@ def identify_cluster(db: TreeDB, counts: np.ndarray, cutoff,
             "strain": db.gcf.get(root, 0),
             "s_ab": ab if root in db.gcf else 0,
         }}
-    return CSTSearch(db, counts, cfg).run(cutoff)
+    search = CSTSearch(db, counts, cfg)
+    res = search.run(cutoff)
+    add_seconds(MATCH, search.match_ns / 1e9)
+    return res

@@ -26,7 +26,7 @@ from strainscan_tpu_torch.identify.cst_search import identify_cluster
 from strainscan_tpu_torch.index.hashtable import fp_table_of
 from strainscan_tpu_torch.io import fastx
 from strainscan_tpu_torch.parallel.sharded import resolve_mesh
-from strainscan_tpu_torch.timing import phase
+from strainscan_tpu_torch.timing import phase, span
 
 log = logging.getLogger("strainscan_tpu_torch.identify")
 
@@ -91,61 +91,64 @@ def run_identify(
 ) -> Optional[Dict[int, dict]]:
     """Identify the strains of one sample on ``device``: "cuda" (every
     visible GPU; raises without one), "cuda:N", "cpu", a device list or a
-    :class:`..parallel.sharded.Mesh`."""
-    device = resolve_mesh(device)
-    os.makedirs(out_dir, exist_ok=True)
-    paths = [p for p in (fq, fq2) if p]
-    with phase("identify/load_db"):
-        db = load_tree_db(db_dir)
-    log.info("counting sample k-mers against %d DB k-mers on %s",
-             db.table.n_keys, device)
-    # Reference parity: jellyfish runs WITHOUT -C in every identify path
-    # (identify.py:82-87, identify_low_mem.py:74) — even against a
-    # memory-efficient DB whose stored k-mers are canonical, so
-    # reverse-orientation read k-mers simply don't count there.
-    with phase("identify/count"):
-        counts = count_sample(fp_table_of(db.table), paths, device, cfg,
-                              canonical=False, use_native=use_native,
-                              keys=db.all_kmers)
-    if cfg.strain_prob:
-        prob = low_depth.identify_ranks(db, counts, cfg)
-        generate_prob_report(prob, db.recls, out_dir)
-    with phase("identify/cst_search"):
-        res, l2 = _search_ladder(db, counts, cfg)
-    if not res:
-        log.warning("No clusters can be detected!")
-        return None
-    log.info("detected clusters: %s", sorted(res))
-
-    pmode, emode = cfg.plasmid_mode, int(cfg.extra_region)
-    vote_db_dir = db_dir
-    if pmode in (1, 2):
-        from strainscan_tpu_torch.build.pipeline import build_database
-
-        if pmode == 1:
-            plas_ref = extract_plasmid_refs(db.recls, res, out_dir, rgenome)
-        else:
-            plas_ref = rgenome
-        pdb = os.path.join(out_dir, "DB_plasmid")
-        log.info("building plasmid DB from %s", plas_ref)
-        build_database(plas_ref, pdb,
-                       BuildConfig(ksize=cfg.ksize, min_kmer=500),
-                       use_native=use_native)
-        pdb_tree = load_tree_db(pdb)
-        pcounts = count_sample(fp_table_of(pdb_tree.table), paths, device,
-                               cfg, use_native=use_native,
-                               keys=pdb_tree.all_kmers)
-        res, l2 = _search_ladder(pdb_tree, pcounts, cfg)
+    :class:`..parallel.sharded.Mesh`.  The call is a root span
+    ``identify/sample``, which gives its spans a new sample id."""
+    with span("identify/sample"):
+        device = resolve_mesh(device)
+        os.makedirs(out_dir, exist_ok=True)
+        paths = [p for p in (fq, fq2) if p]
+        with phase("identify/load_db"):
+            db = load_tree_db(db_dir)
+        log.info("counting sample k-mers against %d DB k-mers on %s",
+                 db.table.n_keys, device)
+        # Reference parity: jellyfish runs WITHOUT -C in every identify path
+        # (identify.py:82-87, identify_low_mem.py:74) — even against a
+        # memory-efficient DB whose stored k-mers are canonical, so
+        # reverse-orientation read k-mers simply don't count there.
+        with phase("identify/count"):
+            counts = count_sample(fp_table_of(db.table), paths, device, cfg,
+                                  canonical=False, use_native=use_native,
+                                  keys=db.all_kmers)
+        if cfg.strain_prob:
+            prob = low_depth.identify_ranks(db, counts, cfg)
+            generate_prob_report(prob, db.recls, out_dir)
+        with phase("identify/cst_search"):
+            res, l2 = _search_ladder(db, counts, cfg)
         if not res:
-            log.warning("No clusters can be detected (plasmid DB)!")
+            log.warning("No clusters can be detected!")
             return None
-        vote_db_dir = pdb
+        log.info("detected clusters: %s", sorted(res))
 
-    # canonical=False: L2 jellyfish also runs without -C
-    # (Vote_Strain_L2_Lasso_new_sp.py:359-371), DB mode notwithstanding
-    with phase("identify/l2_vote"):
-        vote.vote_strain_l2_batch(
-            paths, vote_db_dir, out_dir, res, l2, device, cfg, pmode=pmode,
-            emode=emode, canonical=False, use_native=use_native,
-            log=log.info)
-    return res
+        pmode, emode = cfg.plasmid_mode, int(cfg.extra_region)
+        vote_db_dir = db_dir
+        if pmode in (1, 2):
+            from strainscan_tpu_torch.build.pipeline import build_database
+
+            if pmode == 1:
+                plas_ref = extract_plasmid_refs(db.recls, res, out_dir,
+                                                rgenome)
+            else:
+                plas_ref = rgenome
+            pdb = os.path.join(out_dir, "DB_plasmid")
+            log.info("building plasmid DB from %s", plas_ref)
+            build_database(plas_ref, pdb,
+                           BuildConfig(ksize=cfg.ksize, min_kmer=500),
+                           use_native=use_native)
+            pdb_tree = load_tree_db(pdb)
+            pcounts = count_sample(fp_table_of(pdb_tree.table), paths, device,
+                                   cfg, use_native=use_native,
+                                   keys=pdb_tree.all_kmers)
+            res, l2 = _search_ladder(pdb_tree, pcounts, cfg)
+            if not res:
+                log.warning("No clusters can be detected (plasmid DB)!")
+                return None
+            vote_db_dir = pdb
+
+        # canonical=False: L2 jellyfish also runs without -C
+        # (Vote_Strain_L2_Lasso_new_sp.py:359-371), DB mode notwithstanding
+        with phase("identify/l2_vote"):
+            vote.vote_strain_l2_batch(
+                paths, vote_db_dir, out_dir, res, l2, device, cfg, pmode=pmode,
+                emode=emode, canonical=False, use_native=use_native,
+                log=log.info)
+        return res

@@ -20,7 +20,6 @@ import torch
 from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.ops import enet, l2
 from strainscan_tpu_torch.parallel import sharded as psh
-from strainscan_tpu_torch.timing import phase_acc
 
 
 def _stat_cov(col: np.ndarray, y: np.ndarray) -> Tuple[float, int, int]:
@@ -215,8 +214,7 @@ def detect_strains(
             dominant, X, py_u if py_u.sum() > 0 else py)
     else:
         yy = py_u if py_u.sum() > 0 else py
-        with phase_acc("l2/optimize_dominant"):
-            dominant = _optimize_dominant(X, yy)
+        dominant = _optimize_dominant(X, yy)
         dominant_avg_depth = _avg_depth(dominant, X, yy)
 
     out_columns = [dominant]
@@ -269,8 +267,7 @@ def detect_strains(
     keep = ~((py < npp25) | (py > npp75) | (py > npp_out))
     Xf = oX[keep]
     yf = py[keep]
-    with phase_acc("l2/enet_cv_fit"):
-        result = enet.enet_cv_fit(Xf, yf, device, cfg)
+    result = enet.enet_cv_fit(Xf, yf, device, cfg)
     coef = np.atleast_1d(result.coef)
     if coef.sum() != 0:
         norm = coef / coef.sum()

@@ -24,6 +24,7 @@ from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.identify import prescan
 from strainscan_tpu_torch.identify.count import count_sample
 from strainscan_tpu_torch.index.hashtable import FpTable
+from strainscan_tpu_torch.timing import phase
 
 
 def check_l1_res(res: Dict[int, dict]) -> bool:
@@ -128,11 +129,14 @@ def merge_res(out_dir: str, res: Dict[int, dict]) -> None:
 def _count_union(clusters: List[L2DB], fq_paths, cfg: IdentifyConfig,
                  device, canonical: bool,
                  use_native: bool) -> Dict[int, np.ndarray]:
-    """One streaming pass over the sample for all clusters' k-mers."""
-    union = np.unique(np.concatenate([cl.kmers for cl in clusters]))
-    fpt = FpTable.build(union, k=clusters[0].table.k)
-    counts = count_sample(fpt, fq_paths, device, cfg, canonical=canonical,
-                          use_native=use_native, keys=union)
+    """One streaming pass over the sample for all clusters' k-mers, the
+    phase ``identify/l2_vote/union_count``."""
+    with phase("identify/l2_vote/union_count"):
+        union = np.unique(np.concatenate([cl.kmers for cl in clusters]))
+        fpt = FpTable.build(union, k=clusters[0].table.k)
+        counts = count_sample(fpt, fq_paths, device, cfg,
+                              canonical=canonical, use_native=use_native,
+                              keys=union)
     out = {}
     for cl in clusters:
         idx = np.searchsorted(union, cl.kmers)

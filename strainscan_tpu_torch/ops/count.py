@@ -26,7 +26,7 @@ the fewest bytes to copy to the host, either the nonzero entries as
 or two bytes where the max allows.  The fp finish takes the sparse route in
 slot space and remaps on the host through ``FpTable.val``, so the device
 table's ``slot_of_id`` is uploaded only for a sample that takes the dense
-route.  Every fetch is recorded in :data:`FETCHES`.
+route.  Every fetch is recorded in :data:`FETCHES` (the latest 4,096).
 
 With ``packed_transfer`` (default) batches ship as 2-bit words plus
 validity (``vlen`` where the fp mode can, else ``vbytes``), without it as
@@ -39,12 +39,14 @@ the copy of batch i + 1 overlaps the kernel of batch i.
 
 from __future__ import annotations
 
+import collections
 import time
-from typing import List, NamedTuple, Optional, Tuple, Union
+from typing import Deque, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from strainscan_tpu_torch import timing
 from strainscan_tpu_torch.index.hashtable import (FpTable, KmerTable,
                                                   fp_table_of,
                                                   fp_table_to_device,
@@ -62,18 +64,24 @@ def pack_payload(codes: np.ndarray, packed_transfer: bool, allow_vlen: bool,
     vlen)`` when ``allow_vlen`` and every row's valid bases form a prefix,
     else ``("vbytes", words, vbytes)``, or ``("codes", codes, None)``
     without ``packed_transfer``.  ``host`` turns each NumPy array into the
-    host tensor to ship (pinned on CUDA)."""
+    host tensor to ship (pinned on CUDA).  The path taken (``codes``,
+    ``vlen/fused``: the native fused pack, ``vlen/prefix``:
+    ``valid_prefix_lens``, or ``vbytes``) is noted on the open span as
+    ``pack``."""
     if not packed_transfer:
+        timing.note(pack="codes")
         return ("codes", host(codes), None)
     if allow_vlen:
-        fused = pack.bitpack_codes_vlen(codes)
+        fused, path = pack.bitpack_codes_vlen(codes), "vlen/fused"
         if fused is None:  # no native lib, or a mid-read N
-            vlen = pack.valid_prefix_lens(codes)
+            vlen, path = pack.valid_prefix_lens(codes), "vlen/prefix"
             if vlen is not None:
                 fused = (pack.bitpack_codes(codes, need_vbytes=False)[0],
                          vlen)
         if fused is not None:
+            timing.note(pack=path)
             return ("vlen", host(fused[0]), host(fused[1]))
+    timing.note(pack="vbytes")
     words, vbytes = pack.bitpack_codes(codes)
     return ("vbytes", host(words), host(vbytes))
 
@@ -135,9 +143,10 @@ class Fetch(NamedTuple):
                           # whole finish that made it
 
 
-# every fetch since the last reset_fetches(), in order (for the bench
-# scripts and the smoke; nothing else reads it)
-FETCHES: List[Fetch] = []
+# the latest fetches since the last reset_fetches(), in order (for the
+# bench scripts and the smoke; nothing else reads it); bounded, since the
+# program's own path appends on every finish
+FETCHES: Deque[Fetch] = collections.deque(maxlen=4096)
 
 
 def reset_fetches() -> None:

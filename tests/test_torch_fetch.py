@@ -336,3 +336,22 @@ def test_sharded_finish_equals_jax(sample, jax_calls):
     assert got.sum() > 0
     assert [r.route for r in recs] == [sample] * 2
     assert [r.soi_uploaded for r in recs] == [True, False]
+
+
+def test_fetches_stay_at_their_bound():
+    """``FETCHES`` is appended on every finish of the program's own path:
+    a thousand finishes more than it holds leave it at its bound, the
+    newest last, and ``reset_fetches`` empties it."""
+    rng = np.random.default_rng(26)
+    genome, keys, _ = _genome_table(rng, 2_000)
+    pipe = CountPipeline(port_fp_table(JFpTable.build(keys, k=K)), CPU)
+    pipe.add_batch(_reads(rng, genome, 4))
+    tcount.reset_fetches()
+    bound = tcount.FETCHES.maxlen
+    for _ in range(bound + 1000):
+        want = pipe.finish()
+    assert len(tcount.FETCHES) == bound
+    assert tcount.FETCHES[-1].nnz == np.count_nonzero(want) > 0
+    assert len(list(tcount.FETCHES)) == bound
+    tcount.reset_fetches()
+    assert len(tcount.FETCHES) == 0
