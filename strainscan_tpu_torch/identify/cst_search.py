@@ -30,10 +30,25 @@ over dense count arrays instead of k-mer string dicts:
   (identify.py:473-487) — the latter only for standard DBs, because
   identify_low_mem.py has no qualified-parent fallback.
 
-The node-profile gather and its statistics (``_match_node``,
-``_piecewise``) add up in ``CSTSearch.match_ns``, which
-:func:`identify_cluster` adds to the phase ``identify/cst_search/match``
-once per search.
+Node profiles come from one sparse table per sample (:class:`NodeTable`),
+built from the count vector's positive entries and a key -> node index
+(:class:`KeyIndex`, once per loaded DB, cached on the ``TreeDB``).  Per
+node it holds the positives' median, the survivors under
+``outlier_factor`` x that median and their int64 sum, so ``_match_node``
+reads a node's total, covered count and culled mean bit-equal to the
+dense gather ``counts[ids]`` -> positives -> del_outlier ->
+``np.mean``: a median of integers is exact in float64, and so is a sum of
+integers below 2**53 in any order.  The ladder's two rungs share one
+table (``identify/pipeline.py::_search_ladder``).  Still gathered densely,
+because their profile depends on results the table cannot know or the
+tree has no nodes to search: ``_adjust_profile`` (the remain and Poisson
+branches) and the single-node tree of :func:`identify_cluster`.
+``PROFILES`` counts the profiles served by a table, those gathered
+densely and the tables built (:func:`reset_profiles`).
+
+The table's build and the node lookups (``_match_node``, ``_piecewise``)
+add up in the phase ``identify/cst_search/match``: the build once per
+table, the lookups through ``CSTSearch.match_ns`` once per search.
 """
 
 from __future__ import annotations
@@ -43,12 +58,164 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import scipy.stats as st
+import torch
 
 from strainscan_tpu_torch.build.db import TreeDB
 from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.timing import add_seconds
 
 MATCH = "identify/cst_search/match"
+
+# node profiles served by a NodeTable, gathered densely, and tables built;
+# callers reset it with reset_profiles
+PROFILES = {"table": 0, "dense": 0, "tables": 0}
+
+
+def reset_profiles() -> None:
+    for name in PROFILES:
+        PROFILES[name] = 0
+
+
+def _stats(profile: np.ndarray) -> Tuple[int, float]:
+    """(size, mean) of a densely gathered profile (mean 0.0 when empty)."""
+    return profile.size, float(np.mean(profile)) if profile.size else 0.0
+
+
+def _dense_profile(counts: np.ndarray, ids: np.ndarray,
+                   factor: float) -> np.ndarray:
+    """The positive counts of ``ids``, gathered from the whole vector, less
+    those >= factor x their median (del_outlier, identify.py:106-112)."""
+    PROFILES["dense"] += 1
+    prof = counts[ids]
+    prof = prof[prof > 0]
+    return prof[prof < factor * np.median(prof)] if prof.size else prof
+
+
+class KeyIndex:
+    """Key id -> node of a loaded DB, from ``node_kmers``.
+
+    ``node_of[id]`` is the position of the key's node among the sorted
+    node ids (``pos`` maps a node to it, ``length`` gives its k-mers); -1
+    for a key of no node and -2 for a key listed more than once (in
+    several nodes, or twice in one), whose positions are
+    ``multi_nodes[multi_ptr[j]:multi_ptr[j + 1]]`` for
+    ``multi_keys[j] == id``.  int16 while the nodes allow it: 57 MB at
+    28.6 M keys."""
+
+    def __init__(self, db: TreeDB):
+        nodes = sorted(db.node_kmers)
+        self.pos = {n: i for i, n in enumerate(nodes)}
+        self.length = [int(db.node_kmers[n].size) for n in nodes]
+        ids = (np.concatenate([db.node_kmers[n] for n in nodes]) if nodes
+               else np.empty(0, np.int64))
+        dt = np.int16 if len(nodes) < np.iinfo(np.int16).max else np.int32
+        self.n_keys = int(ids.max()) + 1 if ids.size else 0
+        owner = np.repeat(np.arange(len(nodes), dtype=dt), self.length)
+        self.node_of = np.full(self.n_keys, -1, dt)
+        # torch's scatter runs on every core, in about a tenth of NumPy's
+        # time at 28.6 M keys; a key listed more than once keeps any one
+        # of its listings here
+        torch.from_numpy(self.node_of)[torch.from_numpy(ids).long()] = \
+            torch.from_numpy(owner)
+        self.multi_keys = np.empty(0, np.int64)
+        self.multi_nodes = np.empty(0, dt)
+        self.multi_ptr = np.zeros(1, np.int64)
+        if np.count_nonzero(self.node_of >= 0) < ids.size:  # a key repeats
+            self.multi_keys = np.flatnonzero(
+                np.bincount(ids, minlength=self.n_keys) > 1)
+            self.node_of[self.multi_keys] = -2
+            sel = self.node_of[ids] == -2
+            mk, mo = ids[sel], owner[sel]
+            order = np.argsort(mk, kind="stable")
+            self.multi_nodes = mo[order]
+            self.multi_ptr = np.searchsorted(
+                mk[order], np.append(self.multi_keys, self.n_keys))
+
+
+def key_index(db: TreeDB) -> KeyIndex:
+    """The DB's :class:`KeyIndex`, built at the first call and kept on
+    the (read-only) ``TreeDB``, which ``build.db._TREE_CACHE`` keeps
+    between the samples of a ``batch-identify``."""
+    idx = getattr(db, "_cst_key_index", None)
+    if idx is None:
+        idx = KeyIndex(db)
+        object.__setattr__(db, "_cst_key_index", idx)
+    return idx
+
+
+class NodeTable:
+    """One sample's node statistics, from its positive counts.
+
+    Per node position of the :class:`KeyIndex`: ``n_kept``, the
+    positives under ``factor`` x their median, and ``sum_kept``, their
+    sum; both 0 for a node without positives."""
+
+    def __init__(self, idx: KeyIndex, counts: np.ndarray, factor: float):
+        if counts.dtype.kind not in "iu":
+            raise TypeError(f"counts must be integers, not {counts.dtype}")
+        self.idx = idx
+        c = counts[:idx.n_keys]
+        # torch's scan runs on every core: about half NumPy's flatnonzero
+        keys = torch.from_numpy(c).gt(0).nonzero().squeeze(1).numpy()
+        vals = c[keys].astype(np.int64)
+        node = idx.node_of[keys]
+        one = node >= 0
+        nodes, v = [node[one].astype(np.int64)], [vals[one]]
+        many = np.flatnonzero(node == -2)
+        if many.size:   # one pair per listing of the key
+            j = np.searchsorted(idx.multi_keys, keys[many])
+            lo, n = idx.multi_ptr[j], np.diff(idx.multi_ptr)[j]
+            first = np.repeat(np.cumsum(n) - n, n)
+            at = np.repeat(lo, n) + np.arange(first.size) - first
+            nodes.append(idx.multi_nodes[at].astype(np.int64))
+            v.append(np.repeat(vals[many], n))
+        nodes, v = np.concatenate(nodes), np.concatenate(v)
+        n_kept = np.zeros(len(idx.length), np.int64)
+        sum_kept = np.zeros(len(idx.length), np.int64)
+        if v.size:
+            # (node, count) pairs sorted by node, then count
+            span = int(v.max()) + 1
+            pair = nodes * span + v
+            pair.sort()
+            node_s = pair // span
+            v = pair - node_s * span
+            start = np.flatnonzero(np.diff(node_s, prepend=-1))
+            n_pos = np.diff(np.append(start, v.size))
+            median = (v[start + (n_pos - 1) // 2].astype(np.float64)
+                      + v[start + n_pos // 2].astype(np.float64)) / 2
+            keep = v < np.repeat(factor * median, n_pos)
+            at = node_s[start]
+            n_kept[at] = np.add.reduceat(keep.astype(np.int64), start)
+            sum_kept[at] = np.add.reduceat(np.where(keep, v, 0), start)
+        self.n_kept = n_kept.tolist()
+        self.sum_kept = sum_kept.tolist()
+
+    def profile(self, node: int) -> Tuple[int, int, float]:
+        """(k-mers, kept positives, their mean) of ``node``: the dense
+        path's ``ids.size``, ``prof.size`` and ``float(np.mean(prof))``
+        (0.0 when nothing is kept)."""
+        PROFILES["table"] += 1
+        p = self.idx.pos.get(node)
+        if p is None:
+            return 0, 0, 0.0
+        n = self.n_kept[p]
+        return (self.idx.length[p], n,
+                float(self.sum_kept[p]) / n if n else 0.0)
+
+
+def node_table(db: TreeDB, counts: np.ndarray,
+               cfg: IdentifyConfig = IdentifyConfig()) -> Optional[NodeTable]:
+    """The sample's :class:`NodeTable` for searches of ``db`` (None for a
+    single-node tree, whose search gathers densely).  Its build adds to
+    the phase ``identify/cst_search/match``; the DB's index does not."""
+    if not db.tree.children:
+        return None
+    idx = key_index(db)
+    t0 = time.perf_counter_ns()
+    table = NodeTable(idx, counts, cfg.outlier_factor)
+    add_seconds(MATCH, (time.perf_counter_ns() - t0) / 1e9)
+    PROFILES["tables"] += 1
+    return table
 
 
 class _NodeData:
@@ -65,11 +232,13 @@ class _NodeData:
 class CSTSearch:
     def __init__(self, db: TreeDB, counts: np.ndarray,
                  cfg: IdentifyConfig = IdentifyConfig(),
-                 seed: int = 0):
+                 seed: int = 0, table: Optional[NodeTable] = None):
         self.db = db
         self.tree = db.tree
         self.counts = counts
         self.cfg = cfg
+        self.table = (table if table is not None
+                      else node_table(db, counts, cfg))
         self.rng = np.random.default_rng(seed)
         self.data: Dict[int, _NodeData] = {}
         self.length: Dict[int, float] = {}
@@ -106,29 +275,22 @@ class CSTSearch:
         self._small_threshold = small
 
     # ----------------------------------------------------- stats helpers
-    def _del_outlier(self, profile: np.ndarray) -> np.ndarray:
-        """Drop counts >= outlier_factor * median (identify.py:106-112)."""
-        cutoff = self.cfg.outlier_factor * np.median(profile)
-        return profile[profile < cutoff]
-
-    def _match_node(self, node: int) -> Tuple[int, np.ndarray]:
+    def _match_node(self, node: int) -> Tuple[int, int, float]:
+        """(k-mers, kept positives, their mean) of ``node`` from the
+        sample's table (match_node / del_outlier, identify.py:106-127)."""
         t0 = time.perf_counter_ns()
-        ids = self.db.node_kmers.get(node, np.empty(0, np.int32))
-        prof = self.counts[ids]
-        prof = prof[prof > 0]
-        if prof.size:
-            prof = self._del_outlier(prof)
+        stats = self.table.profile(node)
         self.match_ns += time.perf_counter_ns() - t0
-        return ids.size, prof
+        return stats
 
     def _piecewise(self, cov_cutoff: float, cov: float, label,
-                   profile: np.ndarray) -> float:
-        """identify.py:130-136: halve the cutoff for small nodes."""
+                   n: int, mean: float) -> float:
+        """identify.py:130-136: halve the cutoff for small nodes; ``n``
+        positives kept, ``mean`` their mean."""
         t0 = time.perf_counter_ns()
         if label in (1, "o1"):
             cov_cutoff = cov_cutoff / 2
-        ab = (float(np.mean(profile)) if cov >= cov_cutoff and profile.size
-              else 0.0)
+        ab = mean if cov >= cov_cutoff and n else 0.0
         self.match_ns += time.perf_counter_ns() - t0
         return ab
 
@@ -173,17 +335,15 @@ class CSTSearch:
                   else np.empty(0, d_ids.dtype))
         if d_ids.size - delete.size >= self.cfg.adjust_min_kmers:
             remain = np.setdiff1d(d_ids, delete, assume_unique=False)
-            prof = self.counts[remain]
-            prof = prof[prof > 0]
-            if prof.size:
-                prof = self._del_outlier(prof)
+            prof = _dense_profile(self.counts, remain, self.cfg.outlier_factor)
             self.length[node] = remain.size
             self.cov[node] = prof.size / remain.size if remain.size else 0.0
             self.abundance[node] = self._piecewise(
-                cov_cutoff, self.cov[node], self.data[node].cat, prof)
+                cov_cutoff, self.cov[node], self.data[node].cat, *_stats(prof))
             return 1 if remain.size < self._small_threshold else 2
         # Poisson subtraction of already-identified strains
         # (identify.py:198-228)
+        PROFILES["dense"] += 1
         temp = self.counts[d_ids].astype(np.float64)
         order = sorted(results, key=lambda r: (self.data[r].ab, r),
                        reverse=True)
@@ -206,7 +366,7 @@ class CSTSearch:
         self.length[node] = d_ids.size
         self.cov[node] = prof.size / d_ids.size if d_ids.size else 0.0
         self.abundance[node] = self._piecewise(
-            cov_cutoff, self.cov[node], self.data[node].cat, prof)
+            cov_cutoff, self.cov[node], self.data[node].cat, *_stats(prof))
         return "o1" if d_ids.size < self._small_threshold else "o2"
 
     # --------------------------------------------------- res_node_proc
@@ -260,11 +420,11 @@ class CSTSearch:
             if len(group) == 1 and self.data[group[0]].cat != 0:
                 node = group[0]
                 self.data[node].access = 1
-                self.length[node], prof = self._match_node(node)
-                self.cov[node] = (prof.size / self.length[node]
+                self.length[node], n, mean = self._match_node(node)
+                self.cov[node] = (n / self.length[node]
                                   if self.length[node] else 0.0)
                 self.abundance[node] = self._piecewise(
-                    cov_cutoff, self.cov[node], self.data[node].cat, prof)
+                    cov_cutoff, self.cov[node], self.data[node].cat, n, mean)
                 if self.abundance[node] >= ab_cutoff:
                     pending.append(list(tree.children.get(node, ())))
                 else:
@@ -316,16 +476,16 @@ class CSTSearch:
                     elif nd.cat == "o2":
                         nd.cat = 2
                     group_label.append((node, nd.cat))
-                    self.length[node], prof = self._match_node(node)
+                    self.length[node], n, mean = self._match_node(node)
                     if self.length[node] == 0:
                         self.abundance[node] = 0.0
                         self.cov[node] = 0.0
                         pending.append(list(tree.children.get(node, ())))
                         group_label.append((node, 0))
                     else:
-                        self.cov[node] = prof.size / self.length[node]
+                        self.cov[node] = n / self.length[node]
                         self.abundance[node] = self._piecewise(
-                            cov_cutoff, self.cov[node], nd.cat, prof)
+                            cov_cutoff, self.cov[node], nd.cat, n, mean)
                 else:
                     nd.cat = self._adjust_profile(
                         node, results, cov_cutoff, overlapping_info)
@@ -462,8 +622,11 @@ class CSTSearch:
 
 
 def identify_cluster(db: TreeDB, counts: np.ndarray, cutoff,
-                     cfg: IdentifyConfig = IdentifyConfig()) -> Dict[int, dict]:
-    """One CST search at a cutoff triple (identify.py:402).
+                     cfg: IdentifyConfig = IdentifyConfig(),
+                     table: Optional[NodeTable] = None) -> Dict[int, dict]:
+    """One CST search at a cutoff triple (identify.py:402), its node
+    profiles from ``table`` (the sample's :func:`node_table`, built here
+    when None).
 
     Degenerate single-node tree (Build_tree.py:283-374 DBs): treat the root
     as the single result when covered.
@@ -472,12 +635,8 @@ def identify_cluster(db: TreeDB, counts: np.ndarray, cutoff,
     if not tree.children:  # single-cluster DB
         root = tree.root
         ids = db.node_kmers.get(root, np.empty(0, np.int32))
-        prof = counts[ids]
-        prof = prof[prof > 0]
+        prof = _dense_profile(counts, ids, cfg.outlier_factor)
         total = ids.size
-        cfg_search = CSTSearch(db, counts, cfg)
-        if prof.size:
-            prof = cfg_search._del_outlier(prof)
         cov = prof.size / total if total else 0.0
         ab = float(np.mean(prof)) if prof.size and cov >= cutoff[0] else 0.0
         if ab < cutoff[2] or cov < cutoff[1]:
@@ -488,7 +647,7 @@ def identify_cluster(db: TreeDB, counts: np.ndarray, cutoff,
             "strain": db.gcf.get(root, 0),
             "s_ab": ab if root in db.gcf else 0,
         }}
-    search = CSTSearch(db, counts, cfg)
+    search = CSTSearch(db, counts, cfg, table=table)
     res = search.run(cutoff)
     add_seconds(MATCH, search.match_ns / 1e9)
     return res

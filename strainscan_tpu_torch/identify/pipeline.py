@@ -22,7 +22,8 @@ from strainscan_tpu_torch.build.db import load_tree_db
 from strainscan_tpu_torch.config import BuildConfig, IdentifyConfig
 from strainscan_tpu_torch.identify import low_depth, vote
 from strainscan_tpu_torch.identify.count import count_sample
-from strainscan_tpu_torch.identify.cst_search import identify_cluster
+from strainscan_tpu_torch.identify.cst_search import (identify_cluster,
+                                                     node_table)
 from strainscan_tpu_torch.index.hashtable import fp_table_of
 from strainscan_tpu_torch.io import fastx
 from strainscan_tpu_torch.parallel.sharded import resolve_mesh
@@ -69,12 +70,14 @@ def extract_plasmid_refs(recls: Dict[int, list], cls_dict: Dict[int, dict],
 
 
 def _search_ladder(db, counts, cfg: IdentifyConfig):
-    """Cutoff-ladder retry (StrainScan.py:192-217); returns (res, l2)."""
+    """Cutoff-ladder retry (StrainScan.py:192-217), both rungs on one
+    node table of the sample; returns (res, l2)."""
     ladder = cfg.ladder()
     l2 = 0 if cfg.low_dep == 0 else 1
-    res = identify_cluster(db, counts, list(ladder[0]), cfg)
+    table = node_table(db, counts, cfg)
+    res = identify_cluster(db, counts, list(ladder[0]), cfg, table)
     if not res and len(ladder) > 1:
-        res = identify_cluster(db, counts, list(ladder[1]), cfg)
+        res = identify_cluster(db, counts, list(ladder[1]), cfg, table)
         l2 = 1
     return res, l2
 
