@@ -20,7 +20,7 @@ from typing import Dict, Optional
 
 from strainscan_tpu_torch.build.db import load_tree_db
 from strainscan_tpu_torch.config import BuildConfig, IdentifyConfig
-from strainscan_tpu_torch.identify import low_depth, vote
+from strainscan_tpu_torch.identify import low_depth, prescan, vote
 from strainscan_tpu_torch.identify.count import count_sample
 from strainscan_tpu_torch.identify.cst_search import (identify_cluster,
                                                      node_table)
@@ -97,6 +97,7 @@ def run_identify(
     :class:`..parallel.sharded.Mesh`.  The call is a root span
     ``identify/sample``, which gives its spans a new sample id."""
     with span("identify/sample"):
+        prescan.reset_l2stats()
         device = resolve_mesh(device)
         os.makedirs(out_dir, exist_ok=True)
         paths = [p for p in (fq, fq2) if p]

@@ -4,10 +4,21 @@ Port of ``strainscan_tpu/identify/prescan.py`` (itself a port of the
 reference library/identify_strains_L2_Enet_Pscan_new_sp.py:177-478).  The
 host helpers and ``detect_strains`` are copies; the Pre-Scan column sums
 (:class:`_L2Kernels`) run as int32 masked reductions over the int8 0/1
-k-mer x strain matrix on ``device``, and the Elastic-Net fold Grams run on
-``device`` through :func:`..ops.enet.enet_cv_fit`.  With a mesh of several
-positions and at least ``cfg.shard_min_l2_rows`` rows, both split the
-k-mer axis over the mesh (``parallel.sharded``).
+k-mer x strain matrix on ``device``, the dominant search
+(:func:`_optimize_dominant`) is one pass over all its columns there, and
+the Elastic-Net fold Grams run on ``device`` through
+:func:`..ops.enet.enet_cv_fit`.  With a mesh of several positions and at
+least ``cfg.shard_min_l2_rows`` rows, the column sums and the Grams split
+the k-mer axis over the mesh (``parallel.sharded``); the dominant search
+runs on the mesh's first device with the whole matrix.
+
+A loaded cluster's matrix is checked as 0/1 and uploaded once
+(:func:`cluster_kernels`); a sample uploads only its masks and counts.
+The phases ``identify/l2_vote/prescan`` (up to the Elastic-Net), its
+``identify/l2_vote/prescan/dominant`` and ``identify/l2_vote/enet`` add
+their seconds per cluster to ``timing.PHASE_TIMES``; :data:`L2STATS`
+counts the latest sample's clusters, matrix shapes, scan rounds, uploads
+and checks.
 """
 
 from __future__ import annotations
@@ -20,43 +31,80 @@ import torch
 from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.ops import enet, l2
 from strainscan_tpu_torch.parallel import sharded as psh
+from strainscan_tpu_torch.timing import phase
 
 
-def _stat_cov(col: np.ndarray, y: np.ndarray) -> Tuple[float, int, int]:
-    """stat_cov (:33-43): coverage counting products > 1 as covered."""
-    total = int(np.count_nonzero(col))
-    ic = col * y
-    valid = int(np.count_nonzero(ic > 1))
-    cov = valid / total if total else 0.0
-    return cov, valid, total
+# the latest sample's Pre-Scan: multi-strain clusters voted, each strain
+# matrix's [rows, columns], scan rounds, and matrix uploads and 0/1 checks
+# (one each per loaded cluster, none on its later samples); run_identify
+# resets it at each sample's start, as reset_l2stats does
+L2STATS = {"clusters": 0, "shapes": [], "rounds": 0, "uploads": 0,
+           "checks": 0}
 
 
-def _cal_cov_all(X: np.ndarray, y: np.ndarray) -> np.ndarray:
-    """cal_cov_all (:44-49) vectorized: per-strain coverage."""
-    totals = (X != 0).sum(axis=0)
-    valid = ((X * y[:, None]) > 1).sum(axis=0)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        cov = np.where(totals > 0, valid / np.maximum(totals, 1), 0.0)
-    return cov
+def reset_l2stats() -> None:
+    L2STATS.update(clusters=0, shapes=[], rounds=0, uploads=0, checks=0)
 
 
-def _optimize_dominant(X: np.ndarray, y: np.ndarray) -> int:
-    """optimize_dominat_y (:136-175)."""
-    s = X.shape[1]
-    res = np.zeros(s)
-    for c in range(s):
-        da = X[:, c].astype(np.float64) * y
-        da_noz = da[da != 0]
-        if da_noz.size < 1 or np.sum(da_noz) == 0:
-            res[c] = 0.0
-            continue
-        f25 = np.percentile(da_noz, 5, method="nearest")
-        f75 = np.percentile(da_noz, 95, method="nearest")
-        tem = y.copy().astype(np.float64)
-        tem[tem < f25] = 0
-        tem[tem > f75] = 0
-        res[c] = float(X[:, c] @ tem)
+def _nearest_rank(n: torch.Tensor, q: float) -> torch.Tensor:
+    """The index ``np.percentile(a, q, method="nearest")`` takes into ``n``
+    sorted values, per entry of ``n``: ``(n - 1) * (q / 100)`` in float64,
+    rounded half to even (0 for ``n == 0``)."""
+    return torch.round((n - 1).to(torch.float64) * (q / 100)).clamp(
+        min=0).to(torch.int64)
+
+
+def _optimize_dominant(X, y: np.ndarray) -> int:
+    """optimize_dominat_y (:136-175): the first column of the highest
+    :func:`_dominant_scores`."""
+    res = _dominant_scores(X, y)
     return int(np.where(res == res.max())[0][0])
+
+
+def _dominant_scores(X, y: np.ndarray) -> np.ndarray:
+    """float64 ``[s]``: optimize_dominat_y's score of every column at once,
+    on the device of ``X`` (an int8 0/1 tensor, or an array taken as one
+    on the CPU).
+
+    The reference scores column ``c`` by the sum of ``y`` over the rows of
+    ``c`` with ``f5 <= y <= f95``, where ``f5`` and ``f95`` are the
+    nearest-rank 5th and 95th percentiles of the column's nonzero products
+    ``X[:, c] * y`` (0 for a column with none, or whose products sum to 0),
+    and the first maximum wins.  Here the rows are sorted by ``y`` once:
+    a column's ``j``-th smallest nonzero product is the ``y`` of the row
+    where its running count of set rows with ``y != 0`` reaches ``j + 1``,
+    and its score is the difference of its running sums of ``y`` at the
+    ends of the rows with ``f5 <= y <= f95``.  The counts are integers and
+    ``y`` holds integer counts, so every score is exact."""
+    Xd = torch.as_tensor(X)
+    n, s = Xd.shape
+    if n == 0:
+        return np.zeros(s)
+    yd = torch.from_numpy(np.ascontiguousarray(y, dtype=np.float64)).to(
+        Xd.device)
+    order = torch.argsort(yd)
+    ys = yd[order]
+    Xt = Xd.index_select(0, order).t().contiguous()          # [s, n] int8
+    # running count of each column's nonzero products, in y order
+    cnt = torch.cumsum(Xt * (ys != 0).to(torch.int8), dim=1,
+                       dtype=torch.int32)
+    nnz = cnt[:, -1]
+    ranks = torch.stack([_nearest_rank(nnz, 5), _nearest_rank(nnz, 95)], 1)
+    at = torch.searchsorted(cnt, (ranks + 1).to(torch.int32))
+    f = ys[at.clamp(max=n - 1)]                              # [s, 2]
+    lo = torch.searchsorted(ys, f[:, 0].contiguous())
+    hi = torch.searchsorted(ys, f[:, 1].contiguous(), right=True)
+    run = torch.cumsum(Xt * ys, dim=1)                       # [s, n] float64
+
+    def upto(i):
+        """Per column, the sum of its products over the first ``i`` rows."""
+        got = run.gather(1, (i - 1).clamp(min=0)[:, None])[:, 0]
+        return torch.where(i > 0, got, torch.zeros_like(got))
+
+    score = upto(hi) - upto(lo)
+    score = torch.where((nnz > 0) & (run[:, -1] != 0), score,
+                        torch.zeros_like(score))
+    return score.cpu().numpy()
 
 
 def _avg_depth(dominant: int, X: np.ndarray, y: np.ndarray) -> float:
@@ -73,14 +121,6 @@ def _avg_depth(dominant: int, X: np.ndarray, y: np.ndarray) -> float:
     noz[noz > f75] = 0
     final = noz[noz != 0]
     return float(np.mean(final)) if final.size else 0.0
-
-
-def _candidate(npXt: np.ndarray, y: np.ndarray) -> Tuple[int, int]:
-    """get_candidate_arr (:121-134): most remaining covered k-mers."""
-    prod = npXt * y[None, :]
-    checks = (prod > 1).sum(axis=1)
-    cand = int(np.argmax(checks))
-    return cand, int(checks[cand])
 
 
 class _L2Kernels:
@@ -100,16 +140,19 @@ class _L2Kernels:
     every mask are split by rows over the mesh's positions (padded with
     zero rows) and each column sum is the sum of per-position partials.
     The scan control flow (accept/reject, data-dependent exit) stays on
-    the host, fetching one O(s) vector per round.
+    the host, fetching one O(s) vector per round.  Building one checks X
+    as 0/1 and uploads it (each counted in :data:`L2STATS`).
     """
 
     def __init__(self, X: np.ndarray, device,
                  min_shard_rows: Optional[int] = None):
         self.n, self.s = X.shape
+        L2STATS["checks"] += 1
         if X.size and (X.min() < 0 or X.max() > 1
                        or not np.array_equal(X, np.rint(X))):
             raise ValueError("Pre-Scan kernels require a 0/1 strain matrix")
         X8 = np.ascontiguousarray(X, dtype=np.int8)
+        L2STATS["uploads"] += 1
         mesh = psh.resolve_mesh(device)
         self.device = mesh.first
         self.mesh = (psh.l2_mesh(mesh, self.n, min_shard_rows)
@@ -121,6 +164,17 @@ class _L2Kernels:
                                                             (0, 0))))
         else:
             self.Xd = torch.from_numpy(X8).to(self.device)
+        self._whole = None
+
+    def whole(self) -> torch.Tensor:
+        """X ``[n, s]`` on the first device: the single-device matrix, or
+        the mesh's shards gathered there once."""
+        if self.mesh is None:
+            return self.Xd
+        if self._whole is None:
+            self._whole = torch.cat([x.to(self.device) for x in self.Xd]
+                                    )[:self.n]
+        return self._whole
 
     def to_mask(self, m: np.ndarray):
         m = np.ascontiguousarray(m, dtype=bool)
@@ -147,6 +201,23 @@ class _L2Kernels:
         return used | (self.Xd[:, c] > 0)
 
 
+def cluster_kernels(cl, device,
+                    cfg: IdentifyConfig = IdentifyConfig()) -> _L2Kernels:
+    """The Pre-Scan kernels of a loaded cluster ``cl`` (a ``build.db.L2DB``)
+    on ``device``: its matrix ``cl.dense8()`` checked and uploaded by the
+    first call, then kept on ``cl`` beside it for every later sample (as
+    long as the L2 DB cache holds ``cl``)."""
+    mesh = psh.resolve_mesh(device)
+    key = (mesh.grid, cfg.shard_min_l2_rows)
+    cache = getattr(cl, "_kernels", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(cl, "_kernels", cache)
+    if key not in cache:
+        cache[key] = _L2Kernels(cl.dense8(), mesh, cfg.shard_min_l2_rows)
+    return cache[key]
+
+
 def detect_strains(
     X: np.ndarray,
     py: np.ndarray,
@@ -163,16 +234,53 @@ def detect_strains(
     emode: int,
     device,
     cfg: IdentifyConfig = IdentifyConfig(),
+    kern: Optional[_L2Kernels] = None,
 ):
     """detect_strains (:177-478).
 
     Args mirror the reference: X is the dense k-mer × strain matrix, py the
     per-k-mer counts (1-counts already zeroed), om_selected the overlap
-    matrix restricted to the detected clusters' columns.
+    matrix restricted to the detected clusters' columns.  ``kern`` holds X
+    on ``device`` already (:func:`cluster_kernels`); without it X is
+    checked and uploaded for this call.
     """
     # X stays int8 end to end; column products cast on demand
     X = np.asarray(X)
     py = np.asarray(py, dtype=np.float64)
+    L2STATS["clusters"] += 1
+    L2STATS["shapes"].append(list(X.shape))
+    with phase("identify/l2_vote/prescan", acc=True):
+        found = _prescan(X, py, sid, ksize, cls_cov, om_selected, l2, msn,
+                         pmode, emode, device, cfg, kern)
+    out_columns, out_strains, strain_cov, strain_val, final_src, depth = \
+        found
+    if len(out_columns) == 1:
+        res = {out_strains[0]: 1}
+        res2 = {out_strains[0]: depth}
+        return res, res2, strain_cov, strain_val, final_src
+
+    # -------------------- Elastic-Net over selected columns (:399-456)
+    with phase("identify/l2_vote/enet", acc=True):
+        oX = X[:, out_columns]
+        keep = ~((py < npp25) | (py > npp75) | (py > npp_out))
+        Xf = oX[keep]
+        yf = py[keep]
+        result = enet.enet_cv_fit(Xf, yf, device, cfg)
+    coef = np.atleast_1d(result.coef)
+    if coef.sum() != 0:
+        norm = coef / coef.sum()
+        res = dict(zip(out_strains, norm.tolist()))
+        res2 = dict(zip(out_strains, coef.tolist()))
+    else:
+        res, res2 = {}, {}
+    return res, res2, strain_cov, strain_val, final_src
+
+
+def _prescan(X, py, sid, ksize, cls_cov, om_selected, l2, msn, pmode, emode,
+             device, cfg, kern):
+    """The Pre-Scan of :func:`detect_strains`, up to the Elastic-Net:
+    ``(out_columns, out_strains, strain_cov, strain_val, final_src,
+    dominant_avg_depth)``."""
     ln = om_selected.sum(axis=1).astype(np.float64)
     ln[ln > 1] = 0
     py_u = py * ln
@@ -180,7 +288,8 @@ def detect_strains(
     cutoff = msn * ksize
     # X is the 0/1 strain matrix (all_strains_re), so every Pre-Scan
     # statistic reduces to exact integer column sums (see _L2Kernels)
-    kern = _L2Kernels(X, device, min_shard_rows=cfg.shard_min_l2_rows)
+    if kern is None:
+        kern = _L2Kernels(X, device, min_shard_rows=cfg.shard_min_l2_rows)
     totals = kern.colsum(kern.to_mask(np.ones(X.shape[0], dtype=bool)))
     big_py = py > 1
     valid_all = kern.colsum(kern.to_mask(big_py))
@@ -208,14 +317,15 @@ def detect_strains(
         if np.max(cov_arr) < 0.01:
             l2 = 2
 
-    if l2 == 2:
-        dominant = int(np.where(cov_arr == cov_arr.max())[0][0])
-        dominant_avg_depth = _avg_depth(
-            dominant, X, py_u if py_u.sum() > 0 else py)
-    else:
-        yy = py_u if py_u.sum() > 0 else py
-        dominant = _optimize_dominant(X, yy)
-        dominant_avg_depth = _avg_depth(dominant, X, yy)
+    with phase("identify/l2_vote/prescan/dominant", acc=True):
+        if l2 == 2:
+            dominant = int(np.where(cov_arr == cov_arr.max())[0][0])
+            dominant_avg_depth = _avg_depth(
+                dominant, X, py_u if py_u.sum() > 0 else py)
+        else:
+            yy = py_u if py_u.sum() > 0 else py
+            dominant = _optimize_dominant(kern.whole(), yy)
+            dominant_avg_depth = _avg_depth(dominant, X, yy)
 
     out_columns = [dominant]
     out_strains = [sid[dominant]]
@@ -243,6 +353,7 @@ def detect_strains(
     check_c = cfg.emode_check_c if emode == 1 else cutoff
     for _ in range(cfg.prescan_max_iter):
         # get_candidate_arr (:121-134): one fused reduction per round
+        L2STATS["rounds"] += 1
         checks = gate * kern.colsum_unused(used, big_yy)
         cand = int(np.argmax(checks))
         check = int(checks[cand])
@@ -256,23 +367,5 @@ def detect_strains(
             used = kern.or_column(used, cand)
         else:
             break
-
-    if len(out_columns) == 1:
-        res = {out_strains[0]: 1}
-        res2 = {out_strains[0]: dominant_avg_depth}
-        return res, res2, strain_cov, strain_val, final_src
-
-    # -------------------- Elastic-Net over selected columns (:399-456)
-    oX = X[:, out_columns]
-    keep = ~((py < npp25) | (py > npp75) | (py > npp_out))
-    Xf = oX[keep]
-    yf = py[keep]
-    result = enet.enet_cv_fit(Xf, yf, device, cfg)
-    coef = np.atleast_1d(result.coef)
-    if coef.sum() != 0:
-        norm = coef / coef.sum()
-        res = dict(zip(out_strains, norm.tolist()))
-        res2 = dict(zip(out_strains, coef.tolist()))
-    else:
-        res, res2 = {}, {}
-    return res, res2, strain_cov, strain_val, final_src
+    return (out_columns, out_strains, strain_cov, strain_val, final_src,
+            dominant_avg_depth)

@@ -175,11 +175,12 @@ def vote_strain_l2(
     col_of = {cid: i for i, cid in enumerate(cluster_ids)}
     sel = [col_of[c] for c in res if c in col_of]
     om_sel = np.asarray(cl.overlap[:, sel].todense())
-    # int8 dense, cached on the (LRU-cached) L2DB
+    # int8 dense and its device copy, both cached on the (LRU-cached) L2DB
     X = cl.dense8()
     out = prescan.detect_strains(
         X, py, cl.strains, cl.table.k, npp25, npp75, npp_outlier, cls_cov,
-        om_sel, l2, cfg.min_snv_num, pmode, emode, device, cfg)
+        om_sel, l2, cfg.min_snv_num, pmode, emode, device, cfg,
+        prescan.cluster_kernels(cl, device, cfg))
     res_d, res2, strain_cov, strain_val, final_src = out
     if not res_d:
         return

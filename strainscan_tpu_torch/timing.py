@@ -220,9 +220,10 @@ def _trace(path: str):
 
 
 @contextlib.contextmanager
-def phase(name: str):
+def phase(name: str, acc: bool = False):
     """A span that logs the elapsed wall time and RSS of a pipeline phase
-    and keeps its seconds in ``PHASE_TIMES[name]``; traced when
+    and keeps its seconds in ``PHASE_TIMES[name]`` (with ``acc``, adds
+    them there: a phase run once per cluster of a sample); traced when
     ``STRAINSCAN_TRACE_DIR`` is set and no profile runs.  Yields the
     span."""
     trace_dir = os.environ.get(TRACE_ENV)
@@ -230,7 +231,10 @@ def phase(name: str):
            if trace_dir and not _profiling() else contextlib.nullcontext())
     with ctx, span(name) as s:
         yield s
-    PHASE_TIMES[name] = s.seconds
+    if acc:
+        add_seconds(name, s.seconds)
+    else:
+        PHASE_TIMES[name] = s.seconds
     log.info("phase %-28s %8.2fs  rss %.2f GB", name, s.seconds, rss_gb())
 
 

@@ -681,3 +681,33 @@ def test_fp_finish_on_the_card_equals_cpu(dev, rows):
     assert card._replace(s=0, soi_uploaded=0) == cpu._replace(
         s=0, soi_uploaded=0)
     assert card.route == ("sparse" if rows == 20 else "dense")
+
+
+def test_dominant_search_on_the_card_equals_cpu(dev):
+    """The Pre-Scan's dominant search over a clonal-complex-wide matrix
+    (400,000 k-mers x 128 strains): every column's score on the card
+    equal to the CPU's, and detect_strains' result the same from a strain
+    matrix kept on the card as from one on the CPU."""
+    from strainscan_tpu_torch.identify import prescan
+
+    rng = np.random.default_rng(43)
+    n, s = 400_000, 128
+    X = (rng.random((n, s)) < 0.37).astype(np.int8)
+    y = rng.poisson(3.0, n).astype(np.float64)
+    y[y == 1] = 0
+    X[:, 7] = X[:, 3]                       # a tie for the maximum
+    X[:, 11] = 0                            # a column with no product
+    got = prescan._dominant_scores(torch.from_numpy(X).to(dev), y)
+    want = prescan._dominant_scores(X, y)
+    assert np.array_equal(got, want) and want[11] == 0
+    lam = 6.0 * X[:, 5] + 8.0 * X[:, 40] + 0.05
+    py = rng.poisson(lam).astype(np.float64)
+    py[py == 1] = 0
+    om = np.ones((n, 1))
+    sid = [f"S{i}" for i in range(s)]
+    out = np.median(py[py != 0]) * 1000
+    args = (X, py, sid, 31, 0.0, out, out, 0.9, om, 0, 1, 0, 0)
+    res = [prescan.detect_strains(*args, d, IdentifyConfig(),
+                                  prescan._L2Kernels(X, d))
+           for d in (dev, torch.device("cpu"))]
+    assert repr(res[0]) == repr(res[1])

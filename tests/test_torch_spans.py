@@ -44,7 +44,8 @@ RANGE_CATS = ("cpu_op", "user_annotation")
 RING_NAMES = {"identify/sample", "identify/load_db", "identify/count",
               "count/sample", "count/parse", "count/pack", "count/wait",
               "identify/cst_search", "identify/l2_vote",
-              "identify/l2_vote/union_count"}
+              "identify/l2_vote/union_count", "identify/l2_vote/prescan",
+              "identify/l2_vote/prescan/dominant", "identify/l2_vote/enet"}
 
 
 @pytest.fixture(scope="module")
@@ -114,8 +115,20 @@ def test_one_identify_writes_one_sample_root(plain):
                                 else set()), s.name
     assert {s.attrs["pack"] for s in spans if s.name == "count/pack"} <= {
         "vlen/fused", "vlen/prefix", "vbytes", "codes"}
+    # the Pre-Scan, its dominant search and the Enet, once per voted
+    # cluster (one here) inside the L2 vote
+    up = {s.name: by_id[s.parent].name for s in spans if s.name in (
+        "identify/l2_vote/prescan", "identify/l2_vote/prescan/dominant",
+        "identify/l2_vote/enet")}
+    assert up == {"identify/l2_vote/prescan": "identify/l2_vote",
+                  "identify/l2_vote/prescan/dominant":
+                  "identify/l2_vote/prescan",
+                  "identify/l2_vote/enet": "identify/l2_vote"}
     # the phase seconds are the spans' own; the match only accumulates
     assert phases["identify/l2_vote/union_count"] == union.seconds
+    for name in up:
+        (one,) = [s for s in spans if s.name == name]
+        assert phases[name] == one.seconds
     assert 0 < phases["identify/cst_search/match"] \
         <= phases["identify/cst_search"]
 
