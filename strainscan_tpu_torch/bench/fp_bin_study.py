@@ -23,7 +23,9 @@ it, padded with invalid codes to L = 256 (identify's shape) or not
   (16, 24, 32, 36: about 31, 21, 16 and 14 blocks per multiprocessor of
   an H100 at 65,536 reads).
 * ``union``: the L2 union count's shape at identify-ecoli's deep sample
-  (``identify/vote.py::_count_union``): a table of 7,400 keys drawn from a
+  (``identify/vote.py::_count_union``, which runs ``count_fp`` over the
+  main count's kept device payloads, the same batches, or streams the
+  sample again when none are kept): a table of 7,400 keys drawn from a
   seeded 200 kb genome's both strands (256 buckets x 64 lanes: one fine
   bin, one coarse bin) and 65,536 reads of 100 bp of that genome, half
   reverse-complemented, padded to L = 256 as vlen.  ``count_fp``, its

@@ -3,7 +3,8 @@ the reference StrainScan.py:113-271):
 
     count sample once -> (optional) low-depth probability report ->
     CST search with the cutoff ladder -> (optional) plasmid re-build ->
-    per-cluster layer-2 strain voting -> final report.
+    per-cluster layer-2 strain voting (its union count over the main
+    count's kept device payloads) -> final report.
 
 The DB loads with the port's loader (``build/db.py``); its fingerprint table is uploaded
 to the device once and cached on the table object, so ``batch-identify``
@@ -21,7 +22,8 @@ from typing import Dict, Optional
 from strainscan_tpu_torch.build.db import load_tree_db
 from strainscan_tpu_torch.config import BuildConfig, IdentifyConfig
 from strainscan_tpu_torch.identify import low_depth, prescan, vote
-from strainscan_tpu_torch.identify.count import count_sample
+from strainscan_tpu_torch.identify.count import (KeptBatches, count_sample,
+                                                 reset_keep_stats)
 from strainscan_tpu_torch.identify.cst_search import (identify_cluster,
                                                      node_table)
 from strainscan_tpu_torch.index.hashtable import fp_table_of
@@ -95,9 +97,12 @@ def run_identify(
     """Identify the strains of one sample on ``device``: "cuda" (every
     visible GPU; raises without one), "cuda:N", "cpu", a device list or a
     :class:`..parallel.sharded.Mesh`.  The call is a root span
-    ``identify/sample``, which gives its spans a new sample id."""
-    with span("identify/sample"):
+    ``identify/sample``, which gives its spans a new sample id.  The main
+    count keeps its device payloads for the L2 union count
+    (``count.KeptBatches``) until the call returns."""
+    with span("identify/sample"), KeptBatches() as keep:
         prescan.reset_l2stats()
+        reset_keep_stats()
         device = resolve_mesh(device)
         os.makedirs(out_dir, exist_ok=True)
         paths = [p for p in (fq, fq2) if p]
@@ -112,7 +117,7 @@ def run_identify(
         with phase("identify/count"):
             counts = count_sample(fp_table_of(db.table), paths, device, cfg,
                                   canonical=False, use_native=use_native,
-                                  keys=db.all_kmers)
+                                  keys=db.all_kmers, keep=keep)
         if cfg.strain_prob:
             prob = low_depth.identify_ranks(db, counts, cfg)
             generate_prob_report(prob, db.recls, out_dir)
@@ -154,5 +159,5 @@ def run_identify(
             vote.vote_strain_l2_batch(
                 paths, vote_db_dir, out_dir, res, l2, device, cfg, pmode=pmode,
                 emode=emode, canonical=False, use_native=use_native,
-                log=log.info)
+                log=log.info, keep=keep)
         return res

@@ -271,11 +271,14 @@ class CountPipeline:
       canonical: hash min(fwd, revcomp) of each window.
       packed_transfer: ship 2-bit words + validity (default) or raw codes.
       probe_mode: ``"fp"`` or ``"exact"``.
+      shape: the batch shape ``(rows, cols)``; None (default): the first
+        batch pins it (:func:`shape_batch`).
     """
 
     def __init__(self, table: Union[FpTable, KmerTable],
                  device: torch.device, canonical: bool = False,
-                 packed_transfer: bool = True, probe_mode: str = "fp"):
+                 packed_transfer: bool = True, probe_mode: str = "fp",
+                 shape: Optional[Tuple[int, int]] = None):
         self.k = table.k
         self.device = torch.device(device)
         self.canonical = canonical
@@ -299,7 +302,12 @@ class CountPipeline:
         self._cuda = self.device.type == "cuda"
         self._copy_stream = (torch.cuda.Stream(self.device) if self._cuda
                              else None)
-        self._shape: Optional[tuple] = None
+        self._shape = shape
+
+    @property
+    def shape(self) -> Optional[Tuple[int, int]]:
+        """The batch shape, once pinned."""
+        return self._shape
 
     def _host(self, a: np.ndarray) -> torch.Tensor:
         return host_tensor(a, self._cuda)
@@ -325,25 +333,36 @@ class CountPipeline:
             t.record_stream(cur)
         return dev
 
-    def add_prepared(self, payloads: List[Payload]) -> None:
-        """Copy payloads from :meth:`prepare_batch` and count them."""
-        cols = self._shape[1]
+    def add_prepared(self, payloads: List[Payload], keep=None) -> None:
+        """Copy payloads from :meth:`prepare_batch` and count them.
+        ``keep``: an object whose ``add(payload)`` takes each payload's
+        device tensors ``(form, reads, valid)`` after its count is
+        launched (``identify.count.KeptBatches``)."""
         for form, a, b in payloads:
             if b is None:
-                (reads,), valid = self._to_device(a), {}
+                (reads,), valid = self._to_device(a), None
             else:
-                reads, v = self._to_device(a, b)
-                valid = {form: v}
-            if self.probe_mode == "fp":
-                count_fp(self.counts, reads, self.table.fp, length=cols,
-                         k=self.k, seed=self.table.seed,
-                         canonical=self.canonical, scratch=self.scratch,
-                         **valid)
-            else:
-                count_exact(self.counts, reads, self.table.table,
-                            length=cols, k=self.k,
-                            max_probe=self.table.max_probe,
-                            canonical=self.canonical, **valid)
+                reads, valid = self._to_device(a, b)
+            self.add_device((form, reads, valid))
+            if keep is not None:
+                keep.add((form, reads, valid))
+
+    def add_device(self, payload: Payload) -> None:
+        """Count one payload whose tensors are on the device already, in
+        the batch shape the pipeline has pinned."""
+        form, reads, v = payload
+        valid = {} if v is None else {form: v}
+        cols = self._shape[1]
+        if self.probe_mode == "fp":
+            count_fp(self.counts, reads, self.table.fp, length=cols,
+                     k=self.k, seed=self.table.seed,
+                     canonical=self.canonical, scratch=self.scratch,
+                     **valid)
+        else:
+            count_exact(self.counts, reads, self.table.table,
+                        length=cols, k=self.k,
+                        max_probe=self.table.max_probe,
+                        canonical=self.canonical, **valid)
 
     def add_batch(self, codes: np.ndarray) -> None:
         """codes: uint8 ``[B, L]`` encoded reads (0..3 bases, >= 4 pad/N)."""

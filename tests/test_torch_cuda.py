@@ -711,3 +711,63 @@ def test_dominant_search_on_the_card_equals_cpu(dev):
                                   prescan._L2Kernels(X, d))
            for d in (dev, torch.device("cpu"))]
     assert repr(res[0]) == repr(res[1])
+
+
+def _h2d_copies(prof) -> int:
+    """Host-to-device copies in a profile's device activity."""
+    return sum(e.count for e in prof.key_averages()
+               if "HtoD" in e.key or "Host to Device" in e.key)
+
+
+def test_union_count_from_kept_payloads_on_the_card(dev, tmp_path,
+                                                    monkeypatch):
+    """The L2 union count at the deep sample's shape (three batches of
+    65,536 x 256 and a partial one, reads of 100 bp, a 7,400-key union
+    table) over the main count's kept device payloads equals the union
+    count that streams the FASTQ again, and copies no payload to the
+    card: no ``_to_device`` call and no host-to-device copy in its
+    profile, where the streamed count shows them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from strainscan_tpu_torch.identify import count as icount
+
+    rng = np.random.default_rng(47)
+    genome, keys = _genome_keys(rng, glen=200_000)
+    starts = rng.integers(0, genome.size - 100, size=200_000)
+    seqs = np.array(list("ACGT"))[genome[starts[:, None] + np.arange(100)]]
+    write_fq(tmp_path / "s.fq", ["".join(r) for r in seqs])
+    fq = str(tmp_path / "s.fq")
+    main = FpTable.build(keys, k=31)
+    union = np.sort(rng.choice(keys, size=7_400, replace=False))
+    ufpt = FpTable.build(union, k=31)
+    # the union table's upload, first: its fingerprints and the dense
+    # finish's slot_of_id
+    assert CountPipeline(ufpt, dev).table.slot_of_id.device == dev
+    copies = []
+    to_device = CountPipeline._to_device
+
+    def counted(self, *host):
+        copies.append(sum(t.numel() * t.element_size() for t in host))
+        return to_device(self, *host)
+
+    monkeypatch.setattr(CountPipeline, "_to_device", counted)
+    icount.reset_keep_stats()
+    with icount.KeptBatches() as keep:
+        icount.count_sample(main, fq, dev, keep=keep)
+        assert keep.usable and len(keep.payloads) == len(copies) == 4
+        assert keep.meta == (dev, 31, "fp", True, (65_536, 256))
+        assert all(t.device == dev for p in keep.payloads
+                   for t in p[1:] if t is not None)
+        assert keep.nbytes == sum(copies)
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kept = icount.count_kept(ufpt, keep, dev, keys=union)
+            torch.cuda.synchronize(dev)
+        assert len(copies) == 4 and _h2d_copies(prof) == 0
+    assert icount.KEEP_STATS["kept"] == 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        streamed = icount.count_sample(ufpt, fq, dev, keys=union)
+        torch.cuda.synchronize(dev)
+    assert len(copies) == 8 and _h2d_copies(prof) >= 4
+    assert kept is not None and streamed.sum() > 0
+    assert np.array_equal(kept, streamed)

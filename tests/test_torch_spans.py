@@ -3,8 +3,10 @@ CPU, on the e2e fixture, read in several batches a sample:
 
 * one ``run_identify`` writes one root, ``identify/sample``, and every
   span it wrote carries that root's sample id; the ring holds the phases
-  and the count's spans only, nested as the layers are, with the one
-  attribute a reader reads (the pack's payload path);
+  and the count's spans only, nested as the layers are, with the
+  attributes a reader reads (the pack's payload path, the union count's
+  source and kept bytes); the union count reads the main count's kept
+  payloads, so only the main count parses and packs;
 * the producer's parse and pack spans run in the producer thread, each
   with a ``count/sample`` parent; the waits in the main thread;
 * under a ``torch.profiler`` profile every main-thread span is a range
@@ -99,20 +101,28 @@ def test_one_identify_writes_one_sample_root(plain):
             up = by_id[s.parent]
             assert up.t0 <= s.t0 <= s.t1 <= up.t1, (s.name, up.name)
     # the two counts: the main one and the L2 union's
-    counts = [s for s in spans if s.name == "count/sample"]
-    assert sorted(by_id[c.parent].name for c in counts) == [
+    counts = sorted((s for s in spans if s.name == "count/sample"),
+                    key=lambda s: s.t0)
+    assert [by_id[c.parent].name for c in counts] == [
         "identify/count", "identify/l2_vote/union_count"]
     (union,) = [s for s in spans if s.name == "identify/l2_vote/union_count"]
     assert by_id[union.parent].name == "identify/l2_vote"
-    for c in counts:   # a parse per batch and the one that ends the file
-        parses = [s for s in spans if s.name == "count/parse"
-                  and s.parent == c.id]
-        packs = [s for s in spans if s.name == "count/pack"
-                 and s.parent == c.id]
-        assert len(parses) == len(packs) + 1 >= 3
+    assert union.attrs["source"] == "kept" and union.attrs["kept_bytes"] > 0
+    for c, streamed in zip(counts, (True, False)):
+        # a parse per batch and the one that ends the file; the union
+        # count reads the kept payloads: no parse, pack or wait
+        parses, packs, waits = ([s for s in spans if s.name == name
+                                 and s.parent == c.id] for name in (
+                                     "count/parse", "count/pack",
+                                     "count/wait"))
+        if streamed:
+            assert len(parses) == len(packs) + 1 == len(waits) >= 3
+        else:
+            assert parses == packs == waits == []
+    attrs = {"count/pack": {"pack"},
+             "identify/l2_vote/union_count": {"source", "kept_bytes"}}
     for s in spans:
-        assert set(s.attrs) == ({"pack"} if s.name == "count/pack"
-                                else set()), s.name
+        assert set(s.attrs) == attrs.get(s.name, set()), s.name
     assert {s.attrs["pack"] for s in spans if s.name == "count/pack"} <= {
         "vlen/fused", "vlen/prefix", "vbytes", "codes"}
     # the Pre-Scan, its dominant search and the Enet, once per voted
