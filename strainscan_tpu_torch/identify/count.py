@@ -18,17 +18,18 @@ producer, ``count/wait`` per wait of the main thread for a batch.
   vectors are summed at the end.  The sharded pipeline stays
   single-process, as in the JAX package.
 
-A second count over the same reads (the L2 union count) can skip the
-FASTQ: ``count_sample(..., keep=KeptBatches())`` keeps the device payloads
-a single-device count launched, up to :func:`keep_cap` bytes, and
-:func:`count_kept` counts them again against another table.
-:data:`KEEP_STATS` tells how often that served.
+``count_sample`` of FASTQ paths streams the sample once.
+:class:`SampleReads` owns one sample's reads and counts them against any
+table (``count_sample`` of a ``SampleReads`` is its ``count``): its first
+count, where single-device, keeps the device payloads it launched, up to
+:func:`keep_cap` bytes, and a later count of the same ``k`` reads them
+instead of the FASTQ (the L2 union count, the plasmid count).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Iterator, List, Optional, Sequence, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,20 +59,10 @@ _SHARDED_CACHE_MAX = 2
 # batches the producer thread keeps ready (utils.prefetch's default)
 PREFETCH_DEPTH = 2
 
-# most payload bytes a KeptBatches holds (4 GiB: about 60 M reads of 100 bp
+# most payload bytes a SampleReads keeps (4 GiB: about 60 M reads of 100 bp
 # in 65,536 x 256 batches); on a GPU also at most a quarter of its free
 # memory when the count starts
 KEEP_CAP_BYTES = 4 << 30
-
-# second counts over kept payloads: ``kept`` served from them (``bytes``:
-# the payload bytes they counted), ``streamed`` that read the FASTQ again;
-# ``over_cap``: counts whose keeping stopped at the cap
-KEEP_STATS = {"kept": 0, "streamed": 0, "over_cap": 0, "bytes": 0}
-
-
-def reset_keep_stats() -> None:
-    """Zero :data:`KEEP_STATS`."""
-    KEEP_STATS.update(dict.fromkeys(KEEP_STATS, 0))
 
 
 def keep_cap(device: torch.device) -> int:
@@ -79,57 +70,6 @@ def keep_cap(device: torch.device) -> int:
     if device.type != "cuda":
         return KEEP_CAP_BYTES
     return min(KEEP_CAP_BYTES, torch.cuda.mem_get_info(device)[0] // 4)
-
-
-class KeptBatches:
-    """The device payloads of one count, kept for another count of the
-    same reads.  ``count_sample`` opens it for a single-device count
-    (:meth:`open`) and its pipeline adds each payload after launching its
-    count (:meth:`add`); past the cap it drops them all and is not
-    ``usable``.  As a context manager it releases them on leaving.
-    ``meta``, set at the count's end (:meth:`seal`), is what the payloads
-    depend on: the device, ``k`` (which reads ``read_batches`` drops), the
-    probe mode (the vlen form is the fp mode's), ``packed_transfer`` and
-    the pinned batch shape."""
-
-    def __init__(self):
-        self.payloads: List[Payload] = []
-        self.nbytes = self.cap = 0
-        self.usable = False
-        self.meta = None
-
-    def __enter__(self) -> "KeptBatches":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.release()
-
-    def open(self, pipe: CountPipeline) -> None:
-        """Start keeping for ``pipe``'s count (the holder is empty)."""
-        self.cap, self.usable = keep_cap(pipe.device), True
-
-    def add(self, payload: Payload) -> None:
-        if not self.usable:
-            return
-        n = sum(t.element_size() * t.numel() for t in payload[1:]
-                if t is not None)
-        if self.nbytes + n > self.cap:
-            KEEP_STATS["over_cap"] += 1
-            self.release()
-            return
-        self.payloads.append(payload)
-        self.nbytes += n
-
-    def seal(self, pipe: CountPipeline) -> None:
-        """Record what the kept payloads depend on, at the count's end."""
-        self.meta = (pipe.device, pipe.k, pipe.probe_mode,
-                     pipe.packed_transfer, pipe.shape)
-
-    def release(self) -> None:
-        """Drop the payloads (their device memory frees once the kernels
-        that read them are done)."""
-        self.payloads, self.nbytes, self.usable = [], 0, False
-        self.meta = None
 
 
 def _sharded_pipeline(keys: np.ndarray, k: int, canonical: bool,
@@ -207,43 +147,70 @@ def _sharded(keys: Optional[np.ndarray], mesh: Mesh,
             and mesh.size > 1 and keys.size >= cfg.shard_min_kmers)
 
 
+def _pipeline(table: Union[FpTable, KmerTable], mesh: Mesh,
+              cfg: IdentifyConfig, canonical: bool,
+              keys: Optional[np.ndarray],
+              shape: Optional[Tuple[int, int]] = None):
+    """The pipeline of one count: the cached sharded pipeline where
+    :func:`_sharded` holds, else a single-device :class:`CountPipeline`
+    of batch shape ``shape`` (None: its first batch pins it)."""
+    if _sharded(keys, mesh, cfg):
+        return _sharded_pipeline(keys, table.k, canonical, mesh)
+    return CountPipeline(table, mesh.first, canonical=canonical, shape=shape)
+
+
+def _stream(pipe, fq_paths: PathLike, cfg: IdentifyConfig,
+            use_native: bool, cap: Optional[int] = None
+            ) -> Tuple[Optional[List[Payload]], int]:
+    """Stream the sample through ``pipe``; each wait for the producer's
+    next batch is a ``count/wait`` span.  With a ``cap`` (a single-device
+    ``pipe``), returns the device payloads counted and their bytes, or
+    None once they pass ``cap`` bytes (noted ``over_cap=True`` on the
+    open span); without one, drops each batch's payloads as soon as its
+    count is launched and returns None."""
+    kept, nbytes = ([] if cap is not None else None), 0
+    for payloads in timing.timed_iter(
+            iter_payloads(pipe, fq_paths, cfg, use_native), "count/wait"):
+        if kept is None:
+            pipe.add_prepared(payloads)   # its device payloads free here
+            continue
+        counted = pipe.add_prepared(payloads)
+        nbytes += sum(t.element_size() * t.numel() for p in counted
+                      for t in p[1:] if t is not None)
+        if nbytes > cap:
+            kept = None
+            timing.note(over_cap=True)
+        else:
+            kept += counted
+    return kept, nbytes
+
+
 def count_sample(
     table: Union[FpTable, KmerTable],
-    fq_paths: PathLike,
+    fq_paths: Union[PathLike, "SampleReads"],
     device,
     cfg: IdentifyConfig = IdentifyConfig(),
     canonical: bool = False,
     use_native: bool = True,
     keys: Optional[np.ndarray] = None,
-    keep: Optional[KeptBatches] = None,
 ) -> np.ndarray:
-    """Stream the sample through the count pipeline; int32 counts in the
-    table's id space.
+    """Int32 counts of the sample's k-mers in the table's id space.
 
+    ``fq_paths``: the FASTQ path(s), streamed once through the count
+    pipeline with nothing kept; or the sample's :class:`SampleReads`,
+    whose :meth:`SampleReads.count` counts them on its own device, config
+    and parser (the identify path counts every table this way).
     ``device``: a device (``"cuda:0"``, ``"cpu"``), a device list or a
     :class:`Mesh` (see ``resolve_mesh``).  ``keys``: the table's key array
-    in id order, which the sharded pipeline is built from.  ``keep``: a
-    holder that a single-device count fills with its device payloads (the
-    sharded count leaves it empty), for :func:`count_kept`.
+    in id order, which the sharded pipeline is built from.
 
-    The count is a span ``count/sample``, each wait for the producer's
-    next batch a ``count/wait`` span."""
+    The count is a span ``count/sample`` noting ``source="stream"``."""
+    if isinstance(fq_paths, SampleReads):
+        return fq_paths.count(table, canonical=canonical, keys=keys)
     with timing.span("count/sample"):
-        mesh = resolve_mesh(device)
-        if keep is not None:
-            keep.release()
-        if _sharded(keys, mesh, cfg):
-            pipe, keep = _sharded_pipeline(keys, table.k, canonical, mesh), None
-        else:
-            pipe = CountPipeline(table, mesh.first, canonical=canonical)
-            if keep is not None:
-                keep.open(pipe)
-        extra = {} if keep is None else {"keep": keep}
-        for payloads in timing.timed_iter(
-                iter_payloads(pipe, fq_paths, cfg, use_native), "count/wait"):
-            pipe.add_prepared(payloads, **extra)
-        if keep is not None:
-            keep.seal(pipe)
+        timing.note(source="stream")
+        pipe = _pipeline(table, resolve_mesh(device), cfg, canonical, keys)
+        _stream(pipe, fq_paths, cfg, use_native)
         return _finish(pipe)
 
 
@@ -255,32 +222,61 @@ def _finish(pipe) -> np.ndarray:
     return counts
 
 
-def count_kept(
-    table: FpTable,
-    keep: Optional[KeptBatches],
-    device,
-    cfg: IdentifyConfig = IdentifyConfig(),
-    canonical: bool = False,
-    keys: Optional[np.ndarray] = None,
-) -> Optional[np.ndarray]:
-    """``count_sample``'s counts of the reads whose payloads ``keep``
-    holds, from those payloads: one count per payload into a fresh
-    pipeline of the kept batch shape, in a span ``count/sample``.  None
-    (counted in :data:`KEEP_STATS` as ``streamed``) where ``keep`` cannot
-    give what streaming would: none given, released or over the cap, a
-    sharded count of ``keys`` on ``device``, or payloads of another device,
-    ``k``, probe mode or payload form."""
-    mesh = resolve_mesh(device)
-    if (keep is None or not keep.usable or keep.meta is None
-            or _sharded(keys, mesh, cfg)
-            or keep.meta[:4] != (mesh.first, table.k, "fp", True)):
-        KEEP_STATS["streamed"] += 1
-        return None
-    with timing.span("count/sample"):
-        pipe = CountPipeline(table, mesh.first, canonical=canonical,
-                             shape=keep.meta[4])
-        for payload in keep.payloads:
-            pipe.add_device(payload)
-        KEEP_STATS["kept"] += 1
-        KEEP_STATS["bytes"] += keep.nbytes
-        return _finish(pipe)
+class SampleReads:
+    """One sample's reads (``fq_paths``) on ``device`` (resolved to a
+    :class:`Mesh`, ``.device``), counted against any table by
+    :meth:`count`; a context manager that drops the kept payloads on
+    leaving.
+
+    Only the first count may keep: where it is a single-device count, it
+    streams the FASTQ and keeps the device payloads it counted, up to
+    :func:`keep_cap` bytes (past it, none).  A later single-device count
+    of the same ``k`` counts those payloads in a pipeline of their batch
+    shape; one of another ``k`` (``read_batches`` drops the reads shorter
+    than ``k``), a sharded count, and any count after leaving stream the
+    FASTQ and keep nothing.  Each count is a ``count/sample`` span noting
+    its ``source`` (``stream`` or ``kept``), ``kept_bytes`` where kept,
+    and ``over_cap=True`` where its keeping stopped at the cap."""
+
+    def __init__(self, fq_paths: PathLike, device,
+                 cfg: IdentifyConfig = IdentifyConfig(),
+                 use_native: bool = True):
+        self.fq_paths, self.cfg, self.use_native = fq_paths, cfg, use_native
+        self.device = resolve_mesh(device)
+        self._first = True        # no count yet: the next one may keep
+        self._kept: List[Payload] = []
+        self._k = self._shape = None   # of the kept payloads
+        self._nbytes = 0
+
+    def __enter__(self) -> "SampleReads":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        # their device memory frees once the kernels that read them are done
+        self._first, self._kept, self._k, self._nbytes = False, [], None, 0
+
+    def count(self, table: Union[FpTable, KmerTable], *,
+              canonical: bool = False,
+              keys: Optional[np.ndarray] = None) -> np.ndarray:
+        """``count_sample``'s int32 counts of these reads against
+        ``table`` (``keys``: its key array in id order, for the sharded
+        pipeline)."""
+        with timing.span("count/sample"):
+            kept = self._k == table.k
+            pipe = _pipeline(table, self.device, self.cfg, canonical, keys,
+                             self._shape if kept else None)
+            single = isinstance(pipe, CountPipeline)
+            first, self._first = self._first, False
+            if kept and single:
+                timing.note(source="kept", kept_bytes=self._nbytes)
+                for payload in self._kept:
+                    pipe.add_device(payload)
+            else:
+                timing.note(source="stream")
+                cap = keep_cap(pipe.device) if first and single else None
+                payloads, nbytes = _stream(pipe, self.fq_paths, self.cfg,
+                                           self.use_native, cap)
+                if payloads is not None:
+                    self._kept, self._k, self._shape, self._nbytes = (
+                        payloads, pipe.k, pipe.shape, nbytes)
+            return _finish(pipe)

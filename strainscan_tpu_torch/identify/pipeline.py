@@ -4,7 +4,7 @@ the reference StrainScan.py:113-271):
     count sample once -> (optional) low-depth probability report ->
     CST search with the cutoff ladder -> (optional) plasmid re-build ->
     per-cluster layer-2 strain voting (its union count over the main
-    count's kept device payloads) -> final report.
+    count's kept device payloads, ``count.SampleReads``) -> final report.
 
 The DB loads with the port's loader (``build/db.py``); its fingerprint table is uploaded
 to the device once and cached on the table object, so ``batch-identify``
@@ -22,13 +22,11 @@ from typing import Dict, Optional
 from strainscan_tpu_torch.build.db import load_tree_db
 from strainscan_tpu_torch.config import BuildConfig, IdentifyConfig
 from strainscan_tpu_torch.identify import low_depth, prescan, vote
-from strainscan_tpu_torch.identify.count import (KeptBatches, count_sample,
-                                                 reset_keep_stats)
+from strainscan_tpu_torch.identify.count import SampleReads, count_sample
 from strainscan_tpu_torch.identify.cst_search import (identify_cluster,
                                                      node_table)
 from strainscan_tpu_torch.index.hashtable import fp_table_of
 from strainscan_tpu_torch.io import fastx
-from strainscan_tpu_torch.parallel.sharded import resolve_mesh
 from strainscan_tpu_torch.timing import phase, span
 
 log = logging.getLogger("strainscan_tpu_torch.identify")
@@ -97,27 +95,26 @@ def run_identify(
     """Identify the strains of one sample on ``device``: "cuda" (every
     visible GPU; raises without one), "cuda:N", "cpu", a device list or a
     :class:`..parallel.sharded.Mesh`.  The call is a root span
-    ``identify/sample``, which gives its spans a new sample id.  The main
-    count keeps its device payloads for the L2 union count
-    (``count.KeptBatches``) until the call returns."""
-    with span("identify/sample"), KeptBatches() as keep:
+    ``identify/sample``, which gives its spans a new sample id.  Every
+    count reads the sample through one ``count.SampleReads``, which keeps
+    the main count's device payloads for the later counts until the call
+    returns."""
+    paths = [p for p in (fq, fq2) if p]
+    with span("identify/sample"), \
+            SampleReads(paths, device, cfg, use_native) as reads:
         prescan.reset_l2stats()
-        reset_keep_stats()
-        device = resolve_mesh(device)
         os.makedirs(out_dir, exist_ok=True)
-        paths = [p for p in (fq, fq2) if p]
         with phase("identify/load_db"):
             db = load_tree_db(db_dir)
         log.info("counting sample k-mers against %d DB k-mers on %s",
-                 db.table.n_keys, device)
+                 db.table.n_keys, reads.device)
         # Reference parity: jellyfish runs WITHOUT -C in every identify path
         # (identify.py:82-87, identify_low_mem.py:74) — even against a
         # memory-efficient DB whose stored k-mers are canonical, so
         # reverse-orientation read k-mers simply don't count there.
         with phase("identify/count"):
-            counts = count_sample(fp_table_of(db.table), paths, device, cfg,
-                                  canonical=False, use_native=use_native,
-                                  keys=db.all_kmers, keep=keep)
+            counts = count_sample(fp_table_of(db.table), reads, reads.device,
+                                  canonical=False, keys=db.all_kmers)
         if cfg.strain_prob:
             prob = low_depth.identify_ranks(db, counts, cfg)
             generate_prob_report(prob, db.recls, out_dir)
@@ -144,9 +141,8 @@ def run_identify(
                            BuildConfig(ksize=cfg.ksize, min_kmer=500),
                            use_native=use_native)
             pdb_tree = load_tree_db(pdb)
-            pcounts = count_sample(fp_table_of(pdb_tree.table), paths, device,
-                                   cfg, use_native=use_native,
-                                   keys=pdb_tree.all_kmers)
+            pcounts = count_sample(fp_table_of(pdb_tree.table), reads,
+                                   reads.device, keys=pdb_tree.all_kmers)
             res, l2 = _search_ladder(pdb_tree, pcounts, cfg)
             if not res:
                 log.warning("No clusters can be detected (plasmid DB)!")
@@ -157,7 +153,6 @@ def run_identify(
         # (Vote_Strain_L2_Lasso_new_sp.py:359-371), DB mode notwithstanding
         with phase("identify/l2_vote"):
             vote.vote_strain_l2_batch(
-                paths, vote_db_dir, out_dir, res, l2, device, cfg, pmode=pmode,
-                emode=emode, canonical=False, use_native=use_native,
-                log=log.info, keep=keep)
+                reads, vote_db_dir, out_dir, res, l2, cfg, pmode=pmode,
+                emode=emode, canonical=False, log=log.info)
         return res

@@ -3,14 +3,13 @@
 Port of ``strainscan_tpu/identify/vote.py`` (reference
 library/Vote_Strain_L2_Lasso_new_sp.py:247-438).  The report writers are
 copies; the sample is counted ONCE against a union table of all detected
-multi-strain clusters' k-mers through the port's counter on ``device`` (a
-device or a mesh, see ``parallel.sharded.resolve_mesh``), and per-cluster
-count vectors are sliced out of the combined result.  The union count reads
-the device payloads that the main count kept (``count.count_kept``) where
-it can, else streams the sample again.  Unlike the JAX
-package, the union is not padded with unreachable keys: that pad only
-bounded the number of compiled shapes, and pad keys never match a window,
-so counts are unchanged.
+multi-strain clusters' k-mers, and per-cluster count vectors are sliced out
+of the combined result.  The union count is one ``count_sample`` of the
+sample's ``SampleReads``, on its device or mesh, which reads the device
+payloads that the main count kept where it can, else streams the sample
+again.  Unlike the JAX package, the union is not padded with unreachable
+keys: that pad only bounded the number of compiled shapes, and pad keys
+never match a window, so counts are unchanged.
 """
 
 from __future__ import annotations
@@ -24,10 +23,9 @@ import numpy as np
 from strainscan_tpu_torch.build.db import L2DB, load_l2_db, load_manifest
 from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.identify import prescan
-from strainscan_tpu_torch.identify.count import (KeptBatches, count_kept,
-                                                 count_sample)
+from strainscan_tpu_torch.identify.count import SampleReads, count_sample
 from strainscan_tpu_torch.index.hashtable import FpTable
-from strainscan_tpu_torch.timing import note, phase
+from strainscan_tpu_torch.timing import phase
 
 
 def check_l1_res(res: Dict[int, dict]) -> bool:
@@ -129,24 +127,15 @@ def merge_res(out_dir: str, res: Dict[int, dict]) -> None:
                     f"{d['cov']}\t{d['ct']}\n")
 
 
-def _count_union(clusters: List[L2DB], fq_paths, cfg: IdentifyConfig,
-                 device, canonical: bool, use_native: bool,
-                 keep: Optional[KeptBatches] = None) -> Dict[int, np.ndarray]:
+def _count_union(clusters: List[L2DB], reads: SampleReads,
+                 canonical: bool) -> Dict[int, np.ndarray]:
     """One count of the sample for all clusters' k-mers, the phase
-    ``identify/l2_vote/union_count``: over the main count's payloads in
-    ``keep`` where they serve, else a streaming pass; the phase notes which
-    (``source``: ``kept`` or ``stream``) and the bytes kept."""
+    ``identify/l2_vote/union_count``."""
     with phase("identify/l2_vote/union_count"):
         union = np.unique(np.concatenate([cl.kmers for cl in clusters]))
         fpt = FpTable.build(union, k=clusters[0].table.k)
-        counts = count_kept(fpt, keep, device, cfg, canonical=canonical,
-                            keys=union)
-        note(source="stream" if counts is None else "kept",
-             kept_bytes=0 if counts is None else keep.nbytes)
-        if counts is None:
-            counts = count_sample(fpt, fq_paths, device, cfg,
-                                  canonical=canonical, use_native=use_native,
-                                  keys=union)
+        counts = count_sample(fpt, reads, reads.device, canonical=canonical,
+                              keys=union)
     out = {}
     for cl in clusters:
         idx = np.searchsorted(union, cl.kmers)
@@ -201,22 +190,20 @@ def vote_strain_l2(
 
 
 def vote_strain_l2_batch(
-    fq_paths,
+    reads: SampleReads,
     db_dir: str,
     out_dir: str,
     res: Dict[int, dict],
     l2: int,
-    device,
     cfg: IdentifyConfig = IdentifyConfig(),
     pmode: int = 0,
     emode: int = 0,
     canonical: bool = False,
-    use_native: bool = True,
     log=lambda m: None,
-    keep: Optional[KeptBatches] = None,
 ) -> None:
-    """vote_strain_L2_batch (:247-311).  ``keep``: the main count's
-    payloads, for the union count (:func:`_count_union`)."""
+    """vote_strain_L2_batch (:247-311): the sample's ``reads`` are
+    counted once for every voted cluster (:func:`_count_union`) and voted
+    on their device."""
     os.makedirs(out_dir, exist_ok=True)
     if check_l1_res(res):
         log("only single-strain clusters identified; skipping layer 2")
@@ -234,13 +221,12 @@ def vote_strain_l2_batch(
         generate_single_report(res, out_dir)
         return
     manifest = load_manifest(db_dir)
-    counts_by_cid = _count_union(clusters, fq_paths, cfg, device, canonical,
-                                 use_native, keep)
+    counts_by_cid = _count_union(clusters, reads, canonical)
     cluster_ids = manifest.get("cluster_ids")
     for cl in clusters:
         log(f"layer-2 identification for cluster C{cl.cid}")
         vote_strain_l2(cl, counts_by_cid[cl.cid], out_dir, res, l2, cfg,
-                       device, pmode, emode, cluster_ids)
+                       reads.device, pmode, emode, cluster_ids)
     if len(res) == 1:
         # single multi-strain cluster: its report IS the final report (:258-273)
         only = clusters[0].cid

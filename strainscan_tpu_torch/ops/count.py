@@ -333,19 +333,19 @@ class CountPipeline:
             t.record_stream(cur)
         return dev
 
-    def add_prepared(self, payloads: List[Payload], keep=None) -> None:
-        """Copy payloads from :meth:`prepare_batch` and count them.
-        ``keep``: an object whose ``add(payload)`` takes each payload's
-        device tensors ``(form, reads, valid)`` after its count is
-        launched (``identify.count.KeptBatches``)."""
+    def add_prepared(self, payloads: List[Payload]) -> List[Payload]:
+        """Copy payloads from :meth:`prepare_batch` and count them; returns
+        the device payloads counted, which :meth:`add_device` can count
+        again against another table."""
+        counted = []
         for form, a, b in payloads:
             if b is None:
                 (reads,), valid = self._to_device(a), None
             else:
                 reads, valid = self._to_device(a, b)
-            self.add_device((form, reads, valid))
-            if keep is not None:
-                keep.add((form, reads, valid))
+            counted.append((form, reads, valid))
+            self.add_device(counted[-1])
+        return counted
 
     def add_device(self, payload: Payload) -> None:
         """Count one payload whose tensors are on the device already, in

@@ -729,6 +729,7 @@ def test_union_count_from_kept_payloads_on_the_card(dev, tmp_path,
     profile, where the streamed count shows them."""
     from torch.profiler import ProfilerActivity, profile
 
+    from strainscan_tpu_torch import timing
     from strainscan_tpu_torch.identify import count as icount
 
     rng = np.random.default_rng(47)
@@ -751,20 +752,19 @@ def test_union_count_from_kept_payloads_on_the_card(dev, tmp_path,
         return to_device(self, *host)
 
     monkeypatch.setattr(CountPipeline, "_to_device", counted)
-    icount.reset_keep_stats()
-    with icount.KeptBatches() as keep:
-        icount.count_sample(main, fq, dev, keep=keep)
-        assert keep.usable and len(keep.payloads) == len(copies) == 4
-        assert keep.meta == (dev, 31, "fp", True, (65_536, 256))
-        assert all(t.device == dev for p in keep.payloads
-                   for t in p[1:] if t is not None)
-        assert keep.nbytes == sum(copies)
+    with timing.span("test/sample") as root, \
+            icount.SampleReads(fq, dev) as reads:
+        reads.count(main)
+        assert len(copies) == 4
         torch.cuda.synchronize(dev)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            kept = icount.count_kept(ufpt, keep, dev, keys=union)
+            kept = reads.count(ufpt, keys=union)
             torch.cuda.synchronize(dev)
         assert len(copies) == 4 and _h2d_copies(prof) == 0
-    assert icount.KEEP_STATS["kept"] == 1
+    spans = sorted((s for s in timing.SPANS if s.sample == root.sample
+                    and s.name == "count/sample"), key=lambda s: s.t0)
+    assert [s.attrs for s in spans] == [
+        {"source": "stream"}, {"source": "kept", "kept_bytes": sum(copies)}]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         streamed = icount.count_sample(ufpt, fq, dev, keys=union)
         torch.cuda.synchronize(dev)

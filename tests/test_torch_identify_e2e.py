@@ -13,6 +13,7 @@ import pytest
 
 from strainscan_tpu.config import IdentifyConfig
 from strainscan_tpu.identify.pipeline import run_identify as run_identify_jax
+from strainscan_tpu_torch import timing
 from strainscan_tpu_torch.identify import count as icount
 from strainscan_tpu_torch.identify.pipeline import run_identify
 
@@ -48,15 +49,20 @@ def test_reports_byte_identical_to_jax(fixture, case, monkeypatch):
         monkeypatch.setattr(icount, "KEEP_CAP_BYTES", cap)
     out_jax, out_torch = str(d / f"jax_{case}"), str(d / f"torch_{case}")
     res_jax = run_identify_jax(paths[sample], "", db_dir, out_jax, cfg)
-    res = run_identify(paths[sample], "", db_dir, out_torch, "cpu", cfg)
+    with timing.span("test/sample") as root:
+        res = run_identify(paths[sample], "", db_dir, out_torch, "cpu", cfg)
     assert res is not None and res_jax is not None
     assert sorted(res) == sorted(res_jax)
-    stats = icount.KEEP_STATS
+    # the main count's span, then the union count's where the vote counts
+    # one: its source, and whether the main count's keeping hit the cap
+    counts = sorted((s for s in timing.SPANS if s.sample == root.sample
+                     and s.name == "count/sample"), key=lambda s: s.t0)
     kept = union and cap is None
-    assert (stats["kept"], stats["streamed"]) == (int(kept),
-                                                   int(union and not kept))
-    assert stats["over_cap"] == int(cap == 0)
-    assert (stats["bytes"] > 0) == kept
+    assert [s.attrs["source"] for s in counts] == ["stream"] + (
+        ["kept" if kept else "stream"] if union else [])
+    assert [s.attrs.get("over_cap", False) for s in counts] == [
+        cap == 0] + [False] * union
+    assert (counts[-1].attrs.get("kept_bytes", 0) > 0) == kept
     got = assert_reports_identical(out_torch, out_jax, truth)
     if case == "intra_enet":
         assert any(n.endswith("StrainVote.report") for n in got)

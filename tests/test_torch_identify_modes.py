@@ -1,6 +1,8 @@
 """Identify modes of the PyTorch port (device="cpu") against the JAX package:
 memory-efficient DB, plasmid mode (-p 1), paired-end gzip input and
-degenerate samples, on the fixture layout of test_modes.
+degenerate samples, on the fixture layout of test_modes.  In plasmid mode
+the plasmid DB's count and its L2 union count read the main count's kept
+payloads.
 
 Tolerance: none; every text output is byte-identical (the plasmid-mode
 DB's binary archives are left out of the comparison).
@@ -15,6 +17,7 @@ import pytest
 from strainscan_tpu.build.pipeline import build_database
 from strainscan_tpu.config import BuildConfig, IdentifyConfig
 from strainscan_tpu.identify.pipeline import run_identify as run_identify_jax
+from strainscan_tpu_torch import timing
 from strainscan_tpu_torch.identify.pipeline import run_identify
 
 from _torch_sim import (assert_reports_identical, mutate,  # noqa: F401
@@ -73,8 +76,9 @@ def test_mode_reports_byte_identical_to_jax(setup, case):
     out_jax, out_torch = str(d / f"jax_{case}"), str(d / f"torch_{case}")
     res_jax = run_identify_jax(fqs[fq], fq2, dbs[db], out_jax, cfg,
                                rgenome=rgenome)
-    res = run_identify(fqs[fq], fq2, dbs[db], out_torch, "cpu", cfg,
-                       rgenome=rgenome)
+    with timing.span("test/sample") as root:
+        res = run_identify(fqs[fq], fq2, dbs[db], out_torch, "cpu", cfg,
+                           rgenome=rgenome)
     assert (res is not None) == (res_jax is not None) == found
     if found:
         assert sorted(res) == sorted(res_jax)
@@ -84,3 +88,9 @@ def test_mode_reports_byte_identical_to_jax(setup, case):
     if plasmid:
         assert os.path.exists(os.path.join(out_torch, "DB_plasmid",
                                            "manifest.json"))
+        # the plasmid DB is built at the main DB's k: its count and its
+        # union count read the main count's kept payloads
+        counts = sorted((s for s in timing.SPANS if s.sample == root.sample
+                         and s.name == "count/sample"), key=lambda s: s.t0)
+        assert [s.attrs["source"] for s in counts] == [
+            "stream", "kept", "kept"]

@@ -4,9 +4,9 @@ CPU, on the e2e fixture, read in several batches a sample:
 * one ``run_identify`` writes one root, ``identify/sample``, and every
   span it wrote carries that root's sample id; the ring holds the phases
   and the count's spans only, nested as the layers are, with the
-  attributes a reader reads (the pack's payload path, the union count's
-  source and kept bytes); the union count reads the main count's kept
-  payloads, so only the main count parses and packs;
+  attributes a reader reads (the pack's payload path, each count's source,
+  the union count's kept bytes); the union count reads the main count's
+  kept payloads, so only the main count parses and packs;
 * the producer's parse and pack spans run in the producer thread, each
   with a ``count/sample`` parent; the waits in the main thread;
 * under a ``torch.profiler`` profile every main-thread span is a range
@@ -107,7 +107,9 @@ def test_one_identify_writes_one_sample_root(plain):
         "identify/count", "identify/l2_vote/union_count"]
     (union,) = [s for s in spans if s.name == "identify/l2_vote/union_count"]
     assert by_id[union.parent].name == "identify/l2_vote"
-    assert union.attrs["source"] == "kept" and union.attrs["kept_bytes"] > 0
+    assert counts[0].attrs == {"source": "stream"}
+    assert counts[1].attrs["source"] == "kept"
+    assert counts[1].attrs["kept_bytes"] > 0
     for c, streamed in zip(counts, (True, False)):
         # a parse per batch and the one that ends the file; the union
         # count reads the kept payloads: no parse, pack or wait
@@ -119,10 +121,11 @@ def test_one_identify_writes_one_sample_root(plain):
             assert len(parses) == len(packs) + 1 == len(waits) >= 3
         else:
             assert parses == packs == waits == []
-    attrs = {"count/pack": {"pack"},
-             "identify/l2_vote/union_count": {"source", "kept_bytes"}}
+    attrs = {"count/pack": {"pack"}, "count/sample": {"source"}}
     for s in spans:
-        assert set(s.attrs) == attrs.get(s.name, set()), s.name
+        if s is not counts[1]:
+            assert set(s.attrs) == attrs.get(s.name, set()), s.name
+    assert set(counts[1].attrs) == {"source", "kept_bytes"}
     assert {s.attrs["pack"] for s in spans if s.name == "count/pack"} <= {
         "vlen/fused", "vlen/prefix", "vbytes", "codes"}
     # the Pre-Scan, its dominant search and the Enet, once per voted

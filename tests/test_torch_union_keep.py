@@ -1,6 +1,7 @@
-"""The L2 union count over the main count's kept device payloads
-(``identify.count.KeptBatches``, ``count_kept``, ``vote._count_union``)
-against the union count that streams the sample again, on the CPU.
+"""A sample's reads counted against several tables through one
+``identify.count.SampleReads`` (the main count keeps its device payloads,
+the L2 union count, ``vote._count_union``, reads them) against counts that
+stream the sample again, on the CPU.
 
 Samples: several batches, one batch, and two files whose first is shorter
 than a batch, so that it pins a small batch shape and every later batch is
@@ -8,11 +9,12 @@ cut into blocks of it.  Tolerance: none; counts are int32 and must be equal
 entry for entry.
 """
 
+import gc
 import types
+import weakref
 
 import numpy as np
 import pytest
-import torch
 
 from strainscan_tpu.config import IdentifyConfig as JaxConfig
 from strainscan_tpu.identify.count import count_sample as count_sample_jax
@@ -21,9 +23,7 @@ from strainscan_tpu_torch import timing
 from strainscan_tpu_torch.config import IdentifyConfig
 from strainscan_tpu_torch.identify import count as icount
 from strainscan_tpu_torch.identify import vote
-from strainscan_tpu_torch.identify.count import (KEEP_STATS, KeptBatches,
-                                                 count_kept, count_sample,
-                                                 reset_keep_stats)
+from strainscan_tpu_torch.identify.count import SampleReads, count_sample
 from strainscan_tpu_torch.index.hashtable import FpTable, fp_table_of
 from strainscan_tpu_torch.kmer import pack
 from strainscan_tpu_torch.ops.count import CountPipeline
@@ -95,132 +95,156 @@ def copies(monkeypatch):
     return calls
 
 
+def _counts(root):
+    """The ``count/sample`` spans under ``root`` (closed so far), in
+    order."""
+    return sorted((s for s in timing.SPANS if s.sample == root.sample
+                   and s.name == "count/sample"), key=lambda s: s.t0)
+
+
 @pytest.mark.parametrize("sample", sorted(SAMPLES))
 def test_union_from_kept_payloads_equals_streamed(data, sample, copies):
     files, n_payloads, rows = SAMPLES[sample]
     paths = data["paths"][sample]
-    reset_keep_stats()
-    with KeptBatches() as keep:
-        main = count_sample(data["main"], paths, "cpu", CFG, keep=keep)
-        assert keep.usable and len(keep.payloads) == n_payloads
+    with timing.span("test/sample") as root, \
+            SampleReads(paths, "cpu", CFG) as reads:
+        main = reads.count(data["main"])
         assert len(copies) == n_payloads
-        assert keep.meta == (torch.device("cpu"), K, "fp", True,
-                             (rows, CFG.max_read_len))
-        kept_bytes = keep.nbytes
-        kept = count_kept(data["union"], keep, "cpu", CFG,
-                          keys=data["union_keys"])
+        kept = reads.count(data["union"], keys=data["union_keys"])
         assert len(copies) == n_payloads   # the union copied nothing
-    assert not keep.usable and keep.payloads == [] and keep.nbytes == 0
+        spans = _counts(root)
     streamed = count_sample(data["union"], paths, "cpu", CFG)
-    assert kept is not None and streamed.sum() > 0
+    assert streamed.sum() > 0
     np.testing.assert_array_equal(kept, streamed)
     np.testing.assert_array_equal(
         main, count_sample(data["main"], paths, "cpu", CFG))
-    # a row of a payload: 4 B a 16 bases and a 2 B length
-    assert kept_bytes == n_payloads * rows * (CFG.max_read_len // 4 + 2)
-    assert KEEP_STATS == {"kept": 1, "streamed": 0, "over_cap": 0,
-                          "bytes": kept_bytes}
+    # a row of a payload: 4 B a 16 bases and a 2 B length, in the main
+    # count's batch shape
+    assert [s.attrs for s in spans] == [
+        {"source": "stream"},
+        {"source": "kept", "kept_bytes":
+         n_payloads * rows * (CFG.max_read_len // 4 + 2)}]
 
 
 @pytest.mark.parametrize("cap", ["zero", "one_byte_short"])
-def test_over_the_cap_the_union_count_streams(data, cap, monkeypatch):
+def test_over_the_cap_the_union_count_streams(data, cap, monkeypatch,
+                                              copies):
     paths = data["paths"]["several"]
-    with KeptBatches() as keep:
-        count_sample(data["main"], paths, "cpu", CFG, keep=keep)
-        full = keep.nbytes
+    with timing.span("test/full") as root, \
+            SampleReads(paths, "cpu", CFG) as reads:
+        reads.count(data["main"])
+        reads.count(data["union"])
+        full = _counts(root)[1].attrs["kept_bytes"]
     monkeypatch.setattr(icount, "KEEP_CAP_BYTES",
                         0 if cap == "zero" else full - 1)
-    reset_keep_stats()
-    with KeptBatches() as keep:
-        main = count_sample(data["main"], paths, "cpu", CFG, keep=keep)
-        assert not keep.usable and keep.payloads == [] and keep.nbytes == 0
-        assert count_kept(data["union"], keep, "cpu", CFG) is None
+    del copies[:]
+    with timing.span("test/sample") as root, \
+            SampleReads(paths, "cpu", CFG) as reads:
+        main = reads.count(data["main"])
+        union = reads.count(data["union"])
+        spans = _counts(root)
+    assert [s.attrs for s in spans] == [
+        {"source": "stream", "over_cap": True}, {"source": "stream"}]
+    assert len(copies) == 2 * 3   # both counts copied every payload
     np.testing.assert_array_equal(
         main, count_sample(data["main"], paths, "cpu", CFG))
-    assert KEEP_STATS == {"kept": 0, "streamed": 1, "over_cap": 1,
-                          "bytes": 0}
+    np.testing.assert_array_equal(
+        union, count_sample(data["union"], paths, "cpu", CFG))
 
 
 @pytest.mark.parametrize("route", ["kept", "stream"])
 def test_union_count_notes_its_source(data, route, monkeypatch):
     """``_count_union`` over kept payloads and, with the cap at 0 bytes,
-    streamed: the same counts per cluster as with no holder, and the
-    phase span's ``source`` and ``kept_bytes``."""
+    streamed: the same counts per cluster as from fresh reads, and the
+    ``source`` and ``kept_bytes`` noted on its ``count/sample`` span, the
+    only span under the phase; the phase notes nothing."""
     paths, clusters = data["paths"]["blocks"], data["clusters"]
-    want = vote._count_union(clusters, paths, CFG, "cpu", False, True)
+    with SampleReads(paths, "cpu", CFG) as reads:
+        want = vote._count_union(clusters, reads, False)
     if route == "stream":
         monkeypatch.setattr(icount, "KEEP_CAP_BYTES", 0)
-    reset_keep_stats()
-    with timing.span("test/sample") as root, KeptBatches() as keep:
-        count_sample(data["main"], paths, "cpu", CFG, keep=keep)
-        kept_bytes = keep.nbytes
-        got = vote._count_union(clusters, paths, CFG, "cpu", False, True,
-                                keep)
+    with timing.span("test/sample") as root, \
+            SampleReads(paths, "cpu", CFG) as reads:
+        reads.count(data["main"])
+        got = vote._count_union(clusters, reads, False)
     (phase,) = [s for s in timing.SPANS if s.sample == root.sample
                 and s.name == "identify/l2_vote/union_count"]
-    assert phase.attrs == {"source": route, "kept_bytes": kept_bytes}
-    assert (kept_bytes > 0) == (route == "kept")
+    assert phase.attrs == {}
     counts = [s for s in timing.SPANS if s.sample == root.sample
-              and s.name == "count/sample" and s.parent == phase.id]
-    assert len(counts) == 1   # the union's count, under the phase
+              and s.parent == phase.id]
+    assert [s.name for s in counts] == ["count/sample"]
+    assert counts[0].attrs["source"] == route
+    assert (counts[0].attrs.get("kept_bytes", 0) > 0) == (route == "kept")
     assert sorted(got) == sorted(want) == [1, 2]
     for cid in want:
         np.testing.assert_array_equal(got[cid], want[cid])
         assert want[cid].sum() > 0
-    assert (KEEP_STATS["kept"], KEEP_STATS["streamed"]) == (
-        (1, 0) if route == "kept" else (0, 1))
 
 
 @pytest.mark.parametrize("why", ["sharded", "other_k", "released", "none"])
 def test_payloads_that_cannot_serve_are_not_used(data, why):
-    """A sharded main count keeps nothing; payloads of another ``k`` (whose
-    reads ``read_batches`` would drop otherwise) or a released holder are
-    not counted; without a holder nothing is kept."""
+    """A sharded first count keeps nothing, and every later count streams
+    (only the first count may keep); a
+    count of another ``k`` (whose reads ``read_batches`` would drop
+    otherwise) streams and keeps nothing; a count after leaving the
+    context streams; with none kept yet, the first count streams and
+    keeps.  Every count equals ``count_sample``'s."""
     paths = data["paths"]["several"]
-    reset_keep_stats()
-    keep = KeptBatches()
+    union = data["union"]
+    other = FpTable.build(np.unique(data["union_keys"] >> 20), k=21)
+    want = {id(t): count_sample(t, paths, "cpu", CFG)
+            for t in (data["main"], union, other)}
     if why == "sharded":
         cfg = IdentifyConfig(read_batch=256, max_read_len=128,
                              shard_min_kmers=1)
-        mesh = ["cpu"] * 4
+        reads = SampleReads(paths, ["cpu"] * 4, cfg)
+        plan = [(data["main"], data["main_keys"], "stream"),
+                (union, None, "stream"), (union, None, "stream")]
+    elif why == "other_k":
+        reads = SampleReads(paths, "cpu", CFG)
+        plan = [(data["main"], None, "stream"), (other, None, "stream"),
+                (union, None, "kept"), (other, None, "stream")]
+    elif why == "released":
+        with SampleReads(paths, "cpu", CFG) as reads:
+            reads.count(data["main"])
+        plan = [(union, None, "stream"), (union, None, "stream")]
+    else:
+        reads = SampleReads(paths, "cpu", CFG)
+        plan = [(union, None, "stream"), (data["main"], None, "kept")]
+    icount._SHARDED_CACHE.clear()
+    try:
+        with timing.span("test/sample") as root:
+            got = [reads.count(t, keys=keys) for t, keys, _ in plan]
+    finally:
         icount._SHARDED_CACHE.clear()
-        try:
-            count_sample(data["main"], paths, mesh, cfg, keep=keep,
-                         keys=data["main_keys"])
-        finally:
-            icount._SHARDED_CACHE.clear()
-        assert not keep.usable and keep.payloads == []
-    elif why != "none":
-        count_sample(data["main"], paths, "cpu", CFG, keep=keep)
-        assert keep.usable
-        if why == "released":
-            keep.release()
-    table = (FpTable.build(np.unique(data["union_keys"] >> 20), k=21)
-             if why == "other_k" else data["union"])
-    assert count_kept(table, None if why == "none" else keep, "cpu",
-                      CFG) is None
-    keep.release()
-    assert KEEP_STATS == {"kept": 0, "streamed": 1, "over_cap": 0,
-                          "bytes": 0}
+        reads.__exit__(None, None, None)
+    assert [s.attrs["source"] for s in _counts(root)] == [
+        source for _, _, source in plan]
+    for (t, _, _), counts in zip(plan, got):
+        np.testing.assert_array_equal(counts, want[id(t)])
 
 
 def test_count_sample_without_a_holder_keeps_nothing(data, monkeypatch):
-    """No holder: every batch's ``add_prepared`` gets no ``keep``, and the
-    counts are the JAX package's."""
-    seen = []
+    """``count_sample`` drops the device payloads each ``add_prepared``
+    returns: none is alive once it has returned, and the counts are the
+    JAX package's."""
+    alive = []
     add = CountPipeline.add_prepared
 
-    def spied(self, payloads, keep=None):
-        seen.append(keep)
-        return add(self, payloads, keep)
+    def spied(self, payloads):
+        counted = add(self, payloads)
+        alive.extend(weakref.ref(p[1]) for p in counted)
+        return counted
 
     monkeypatch.setattr(CountPipeline, "add_prepared", spied)
-    reset_keep_stats()
     paths = data["paths"]["blocks"]
-    got = count_sample(data["main"], paths, "cpu", CFG)
-    assert seen == [None] * 4   # a batch, then the second file's three
+    with timing.span("test/sample") as root:
+        got = count_sample(data["main"], paths, "cpu", CFG)
+    gc.collect()
+    assert len(alive) == 1 + 3 + 3 + 2   # a batch, then three cut in 3s
+    assert all(ref() is None for ref in alive)
+    assert [s.attrs for s in _counts(root)] == [{"source": "stream"}]
     want = count_sample_jax(data["jax_table"], paths,
                             JaxConfig(read_batch=256, max_read_len=128))
     np.testing.assert_array_equal(got, np.asarray(want))
     assert got.sum() > 0
-    assert KEEP_STATS == dict.fromkeys(KEEP_STATS, 0)
