@@ -211,17 +211,11 @@ def breakdown(pipe: CountPipeline, fq: str, first: np.ndarray,
     for b in fastx.read_batches(fq, batch=BATCH, maxlen=MAXLEN, k=K):
         nb += b.shape[0]
     t_parse = time.perf_counter() - t0
-    pack.bitpack_codes(first)   # warm (the first call pays page faults)
-    fused = pack.bitpack_codes_vlen(first)
-    t0 = time.perf_counter()
+    (payload,) = pipe.prepare_batch(first)   # warm: the first call pays
+    t0 = time.perf_counter()                  # page faults
     for _ in range(4):
-        if fused is not None:
-            pack.bitpack_codes_vlen(first)
-        else:
-            pack.bitpack_codes(first)
-            pack.valid_prefix_lens(first)
+        pipe.prepare_batch(first)
     t_pack = (time.perf_counter() - t0) / 4 * (nb / first.shape[0])
-    (payload,) = pipe.prepare_batch(first)
     form, words, valid = payload
     words, valid = words.to(pipe.device), valid.to(pipe.device)
     counts = torch.zeros_like(pipe.counts)

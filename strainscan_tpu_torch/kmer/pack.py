@@ -275,6 +275,39 @@ def join_u32(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
 
 
+def pack_batch(codes: np.ndarray, words: np.ndarray,
+               vbytes: "np.ndarray | None" = None,
+               vlen: "np.ndarray | None" = None) -> bool:
+    """Pack a read batch in one native pass into the caller's arrays.
+
+    ``codes`` [B, L] uint8 (0..3 bases, >=4 invalid/pad) fills ``words``
+    uint32 [B, ceil(L/16)] and, where given, ``vbytes`` uint8
+    [B, ceil(L/8)], the layouts of :func:`bitpack_codes`, and ``vlen``
+    uint16 [B], each row's valid count.  Returns True when every row's
+    valid bases form a prefix run, so that ``vlen`` is what
+    :func:`valid_prefix_lens` gives.  Needs the native library."""
+    import ctypes
+
+    from strainscan_tpu_torch import native
+
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    b, length = codes.shape
+    w, vb = -(-length // 16), -(-length // 8)
+    for a, dtype, shape in ((words, np.uint32, (b, w)),
+                            (vbytes, np.uint8, (b, vb)),
+                            (vlen, np.uint16, (b,))):
+        if a is not None and not (a.dtype == dtype and a.shape == shape
+                                  and a.flags.c_contiguous):
+            raise ValueError(f"pack_batch: want {np.dtype(dtype)} {shape}, "
+                             f"got {a.dtype} {a.shape}")
+
+    def ptr(a):
+        return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+    return bool(native.get_lib().pack_batch(
+        ptr(codes), b, length, ptr(words), w, ptr(vbytes), vb, ptr(vlen)))
+
+
 def bitpack_codes(codes: np.ndarray, need_vbytes: bool = True):
     """Pack encoded reads for transfer: 2 bits/base + 1 validity bit.
 
@@ -289,17 +322,10 @@ def bitpack_codes(codes: np.ndarray, need_vbytes: bool = True):
     vb = -(-length // 8)
     from strainscan_tpu_torch import native
 
-    lib = native.get_lib()
-    if lib is not None and hasattr(lib, "pack_codes"):
-        import ctypes
-
-        codes_c = np.ascontiguousarray(codes, dtype=np.uint8)
+    if native.get_lib() is not None:
         words = np.empty((b, w), dtype=np.uint32)
         vbytes = np.empty((b, vb), dtype=np.uint8)
-        lib.pack_codes(
-            codes_c.ctypes.data_as(ctypes.c_void_p), b, length,
-            words.ctypes.data_as(ctypes.c_void_p), w,
-            vbytes.ctypes.data_as(ctypes.c_void_p), vb)
+        pack_batch(codes, words, vbytes)
         return words, vbytes
     cp = np.zeros((b, w * 16), dtype=np.uint32)
     cp[:, :length] = np.where(codes < 4, codes, 0).astype(np.uint32)
@@ -317,33 +343,20 @@ def bitpack_codes(codes: np.ndarray, need_vbytes: bool = True):
 
 
 def bitpack_codes_vlen(codes: np.ndarray):
-    """Fused single-pass (words, vlen) packing via the native library.
+    """Single-pass (words, vlen) packing via the native library.
 
     Returns ``(words uint32 [B, ceil(L/16)], vlen uint16 [B])`` — the
     payload of the vlen transfer form — or ``None`` when a row's validity
-    is not a contiguous prefix (mid-read N; caller falls back to
-    ``bitpack_codes`` + vbytes) or the native library is unavailable.
-    Replaces the two-pass ``valid_prefix_lens`` + ``bitpack_codes``
-    NumPy flow on the hot producer path."""
+    is not a contiguous prefix (mid-read N; the batch needs vbytes) or
+    the native library is unavailable."""
     from strainscan_tpu_torch import native
 
-    lib = native.get_lib()
-    if lib is None or not hasattr(lib, "pack_codes_vlen"):
+    if native.get_lib() is None:
         return None
-    import ctypes
-
     b, length = codes.shape
-    w = -(-length // 16)
-    codes_c = np.ascontiguousarray(codes, dtype=np.uint8)
-    words = np.empty((b, w), dtype=np.uint32)
+    words = np.empty((b, -(-length // 16)), dtype=np.uint32)
     vlen = np.empty((b,), dtype=np.uint16)
-    rc = lib.pack_codes_vlen(
-        codes_c.ctypes.data_as(ctypes.c_void_p), b, length,
-        words.ctypes.data_as(ctypes.c_void_p), w,
-        vlen.ctypes.data_as(ctypes.c_void_p))
-    if rc != 0:
-        return None
-    return words, vlen
+    return (words, vlen) if pack_batch(codes, words, vlen=vlen) else None
 
 
 def valid_prefix_lens(codes: np.ndarray):

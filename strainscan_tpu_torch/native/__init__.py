@@ -81,14 +81,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p]
-        lib.pack_codes.restype = None
-        lib.pack_codes.argtypes = [
+        lib.pack_batch.restype = ctypes.c_int
+        lib.pack_batch.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-        lib.pack_codes_vlen.restype = ctypes.c_int
-        lib.pack_codes_vlen.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p]
         lib.table_build_fp.restype = ctypes.c_int
         lib.table_build_fp.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,

@@ -375,70 +375,87 @@ int table_build_fp(const uint64_t *keys, const int32_t *values, long long n,
     return 0;
 }
 
-/* Bit-pack an encoded read batch for host->device transfer: 2 bits/base
- * plus 1 validity bit (see strainscan_tpu_torch.kmer.pack.bitpack_codes — this
- * is the same layout, faster than the NumPy fallback).  codes is
- * uint8 [b, length] (0..3 base, >=4 invalid); words uint32 [b, w] with
- * w = ceil(length/16); vbytes uint8 [b, vb] with vb = ceil(length/8). */
-/* Fused 2-bit packing + validity-prefix extraction: ONE pass per row
-   producing the exact (words, vlen) payload of the vlen transfer form
-   (kmer/pack.py bitpack_codes + valid_prefix_lens fused: two NumPy
-   passes of the host pipeline in one).
-   Returns 0 when every row's validity is a contiguous prefix; 1 as soon
-   as a mid-row invalid code is seen (caller discards and falls back to
-   the vbytes form for the whole batch — semantics preserved). */
-int pack_codes_vlen(const unsigned char *codes, long long b, int length,
-                    uint32_t *words, int w, uint16_t *vlen) {
-    for (long long r = 0; r < b; r++) {
-        const unsigned char *row = codes + r * (long long)length;
-        uint32_t *wrow = words + r * (long long)w;
-        int run = 0;
-        while (run < length && row[run] < 4) run++;
-        for (int t = run; t < length; t++)
-            if (row[t] < 4) return 1;       /* mid-row N: not a prefix */
-        vlen[r] = (uint16_t)run;
-        for (int g = 0; g < w; g++) {
-            int base = g * 16;
-            int lim = length - base; if (lim > 16) lim = 16;
-            uint32_t acc = 0;
-            for (int t = 0; t < lim; t++) {
-                unsigned char c = row[base + t];
-                uint32_t valid = (uint32_t)(c < 4);      /* branchless */
-                acc |= ((uint32_t)(c & 3) * valid) << (2 * t);
-            }
-            wrow[g] = acc;
-        }
-    }
-    return 0;
+/* Bit-pack an encoded read batch for host->device transfer in one pass
+ * over its codes (strainscan_tpu_torch.kmer.pack.pack_batch).  codes is
+ * uint8 [b, length], 0..3 a base, anything above 3 invalid.  Writes words
+ * uint32 [b, w] (w = ceil(length/16); base p in bits 2*(p%16) of word
+ * p/16, 0 where invalid) and, each where not NULL, vbytes uint8 [b, vb]
+ * (vb = ceil(length/8); validity bit p%8 of byte p/8) and vlen uint16 [b]
+ * (each row's valid count).  Returns 1 when every row's valid bases form
+ * a prefix run, so that vlen is the payload of the vlen form, else 0.
+ * Where the compiler targets AVX2 each 32 codes of a row are packed in
+ * registers; an 8-code step on 64-bit words takes the rest.  A row stays
+ * a prefix while its groups are full until one is a low run, and every
+ * later one empty: each group's validity mask m is checked as it is made. */
+#ifdef __AVX2__
+#include <immintrin.h>
+#endif
+
+#define PREFIX_STEP(m, full) do { \
+    bad |= ((m) & closed) | ((m) & ((m) + 1)); \
+    closed |= -(uint32_t)((m) != (full)); } while (0)
+
+/* 8 codes, little-endian in x -> their 16 bits of words; *v their
+   validity byte. */
+static inline uint32_t pack8(uint64_t x, uint32_t *v) {
+    const uint64_t lo7 = 0x7F7F7F7F7F7F7F7FULL, hi = ~lo7;
+    uint64_t t = x & 0xFCFCFCFCFCFCFCFCULL;              /* 0 iff code <= 3 */
+    uint64_t ok = (((((t & lo7) + lo7) | t) & hi) ^ hi) >> 7;  /* 1 a byte */
+    uint64_t c = x & (ok * 3);
+    *v = (uint32_t)((ok * 0x0102040810204080ULL) >> 56);
+    c = (c | (c >> 6)) & 0x000F000F000F000FULL;
+    c = (c | (c >> 12)) & 0x000000FF000000FFULL;
+    return (uint32_t)((c | (c >> 24)) & 0xFFFF);
 }
 
-void pack_codes(const unsigned char *codes, long long b, int length,
-                uint32_t *words, int w, unsigned char *vbytes, int vb) {
+int pack_batch(const unsigned char *codes, long long b, int length,
+               uint32_t *words, int w, unsigned char *vbytes, int vb,
+               uint16_t *vlen) {
+    uint32_t any_bad = 0;
     for (long long r = 0; r < b; r++) {
         const unsigned char *row = codes + r * (long long)length;
         uint32_t *wrow = words + r * (long long)w;
-        unsigned char *vrow = vbytes + r * (long long)vb;
-        for (int g = 0; g < w; g++) {
-            int base = g * 16;
-            int lim = length - base; if (lim > 16) lim = 16;
-            uint32_t acc = 0;
-            for (int t = 0; t < lim; t++) {
-                unsigned char c = row[base + t];
-                uint32_t valid = (uint32_t)(c < 4);      /* branchless */
-                acc |= ((uint32_t)(c & 3) * valid) << (2 * t);
-            }
-            wrow[g] = acc;
+        unsigned char *vrow = vbytes ? vbytes + r * (long long)vb : NULL;
+        uint32_t closed = 0, bad = 0, count = 0, v, m;
+        int p = 0;
+#ifdef __AVX2__
+        const __m256i three = _mm256_set1_epi8(3);
+        const __m256i by4 = _mm256_set1_epi16(0x0401);       /* c0 + 4 c1 */
+        const __m256i by16 = _mm256_set1_epi32(0x00100001);  /* + 16 (..) */
+        const __m256i pick = _mm256_set1_epi32(0x0C080400); /* 0,4,8,12 */
+        for (; p + 32 <= length; p += 32) {
+            __m256i x = _mm256_loadu_si256((const __m256i *)(row + p));
+            __m256i ok = _mm256_cmpeq_epi8(_mm256_min_epu8(x, three), x);
+            __m256i c = _mm256_madd_epi16(
+                _mm256_maddubs_epi16(_mm256_and_si256(x, ok), by4), by16);
+            c = _mm256_shuffle_epi8(c, pick);     /* 16 codes a lane */
+            wrow[p / 16] = (uint32_t)_mm_cvtsi128_si32(
+                _mm256_castsi256_si128(c));
+            wrow[p / 16 + 1] = (uint32_t)_mm_cvtsi128_si32(
+                _mm256_extracti128_si256(c, 1));
+            m = (uint32_t)_mm256_movemask_epi8(ok);
+            if (vrow) memcpy(vrow + p / 8, &m, 4);
+            count += (uint32_t)__builtin_popcount(m);
+            PREFIX_STEP(m, 0xFFFFFFFFu);
         }
-        for (int g = 0; g < vb; g++) {
-            int base = g * 8;
-            int lim = length - base; if (lim > 8) lim = 8;
-            unsigned char acc = 0;
-            for (int t = 0; t < lim; t++)
-                acc |= (unsigned char)((row[base + t] < 4) << t);
-            vrow[g] = acc;
+#endif
+        for (; p < length; p += 8) {
+            uint64_t x = 0x0404040404040404ULL;   /* past the row: invalid */
+            if (p + 8 <= length) memcpy(&x, row + p, 8);
+            else memcpy(&x, row + p, (size_t)(length - p));
+            uint32_t bits = pack8(x, &v);
+            if (p & 8) wrow[p / 16] |= bits << 16;
+            else wrow[p / 16] = bits;
+            if (vrow) vrow[p / 8] = (unsigned char)v;
+            count += (uint32_t)__builtin_popcount(v);
+            PREFIX_STEP(v, 0xFFu);
         }
+        if (vlen) vlen[r] = (uint16_t)count;
+        any_bad |= bad;
     }
+    return any_bad == 0;
 }
+#undef PREFIX_STEP
 
 /* ------------------------------------------------------------------ *
  * Sorted-uint64 set primitives for the CST builder's global id space

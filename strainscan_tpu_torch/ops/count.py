@@ -46,7 +46,7 @@ from typing import Deque, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from strainscan_tpu_torch import timing
+from strainscan_tpu_torch import native, timing
 from strainscan_tpu_torch.index.hashtable import (FpTable, KmerTable,
                                                   fp_table_of,
                                                   fp_table_to_device,
@@ -59,31 +59,39 @@ Payload = Tuple[str, torch.Tensor, Optional[torch.Tensor]]
 
 
 def pack_payload(codes: np.ndarray, packed_transfer: bool, allow_vlen: bool,
-                 host) -> Payload:
-    """One read batch as a payload ``(form, a, b)``: ``("vlen", words,
-    vlen)`` when ``allow_vlen`` and every row's valid bases form a prefix,
-    else ``("vbytes", words, vbytes)``, or ``("codes", codes, None)``
-    without ``packed_transfer``.  ``host`` turns each NumPy array into the
-    host tensor to ship (pinned on CUDA).  The path taken (``codes``,
-    ``vlen/fused``: the native fused pack, ``vlen/prefix``:
-    ``valid_prefix_lens``, or ``vbytes``) is noted on the open span as
+                 pin: bool) -> Payload:
+    """One read batch as a payload ``(form, a, b)`` of host tensors, pinned
+    where ``pin``: ``("vlen", words, vlen)`` when ``allow_vlen`` and every
+    row's valid bases form a prefix, else ``("vbytes", words, vbytes)``, or
+    ``("codes", codes, None)`` without ``packed_transfer``.  With the
+    native library one pass (``pack.pack_batch``) writes words, vbytes and
+    vlen straight into the host tensors; without it NumPy packs.  The path
+    taken (``codes``; ``vlen/fused`` or ``vbytes/fused``: the native pass;
+    ``vlen/prefix`` or ``vbytes``: NumPy) is noted on the open span as
     ``pack``."""
     if not packed_transfer:
         timing.note(pack="codes")
-        return ("codes", host(codes), None)
-    if allow_vlen:
-        fused, path = pack.bitpack_codes_vlen(codes), "vlen/fused"
-        if fused is None:  # no native lib, or a mid-read N
-            vlen, path = pack.valid_prefix_lens(codes), "vlen/prefix"
-            if vlen is not None:
-                fused = (pack.bitpack_codes(codes, need_vbytes=False)[0],
-                         vlen)
-        if fused is not None:
-            timing.note(pack=path)
-            return ("vlen", host(fused[0]), host(fused[1]))
-    timing.note(pack="vbytes")
-    words, vbytes = pack.bitpack_codes(codes)
-    return ("vbytes", host(words), host(vbytes))
+        return ("codes", host_tensor(codes, pin), None)
+    if native.get_lib() is None:
+        vlen = pack.valid_prefix_lens(codes) if allow_vlen else None
+        if vlen is not None:
+            timing.note(pack="vlen/prefix")
+            words = pack.bitpack_codes(codes, need_vbytes=False)[0]
+            return ("vlen", host_tensor(words, pin), host_tensor(vlen, pin))
+        timing.note(pack="vbytes")
+        words, vbytes = pack.bitpack_codes(codes)
+        return ("vbytes", host_tensor(words, pin), host_tensor(vbytes, pin))
+    b, length = codes.shape
+    words = torch.empty((b, -(-length // 16)), dtype=torch.int32,
+                        pin_memory=pin)
+    vbytes = torch.empty((b, -(-length // 8)), dtype=torch.uint8,
+                         pin_memory=pin)
+    vlen = torch.empty((b,), dtype=torch.uint16, pin_memory=pin)
+    prefix = pack.pack_batch(codes, words.numpy().view(np.uint32),
+                             vbytes.numpy(), vlen.numpy())
+    form = "vlen" if allow_vlen and prefix else "vbytes"
+    timing.note(pack=form + "/fused")
+    return (form, words, vlen if form == "vlen" else vbytes)
 
 
 def pad_invalid_rows(codes: np.ndarray, multiple: int) -> np.ndarray:
@@ -309,9 +317,6 @@ class CountPipeline:
         """The batch shape, once pinned."""
         return self._shape
 
-    def _host(self, a: np.ndarray) -> torch.Tensor:
-        return host_tensor(a, self._cuda)
-
     def prepare_batch(self, codes: np.ndarray) -> List[Payload]:
         """Host half of :meth:`add_batch`: shape pinning and padding
         (:func:`shape_batch`), then packing.  Returns payloads (see
@@ -319,7 +324,7 @@ class CountPipeline:
         may call it: it owns the batch shape."""
         self._shape, blocks = shape_batch(codes, self._shape)
         return [pack_payload(b, self.packed_transfer,
-                             self.probe_mode == "fp", self._host)
+                             self.probe_mode == "fp", self._cuda)
                 for b in blocks]
 
     def _to_device(self, *host: torch.Tensor) -> List[torch.Tensor]:

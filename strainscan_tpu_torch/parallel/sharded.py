@@ -45,8 +45,8 @@ from strainscan_tpu_torch.device import resolve_device
 from strainscan_tpu_torch.kmer.device import from_u32
 from strainscan_tpu_torch.ops import l2
 from strainscan_tpu_torch.ops.count import (Payload, fetch_counts,
-                                            host_tensor, pack_payload,
-                                            pad_invalid_rows, shape_batch)
+                                            pack_payload, pad_invalid_rows,
+                                            shape_batch)
 from strainscan_tpu_torch.ops.probe import FpScratch, count_exact, count_fp
 from strainscan_tpu_torch.parallel import distributed as dist
 
@@ -342,8 +342,7 @@ class ShardedCountPipeline:
         then packing, as ``CountPipeline.prepare_batch``.  Only the
         producer thread may call it: it owns the batch shape."""
         self._shape, blocks = shape_batch(codes, self._shape, self.mesh.size)
-        return [pack_payload(b, self.packed_transfer, True,
-                             lambda a: host_tensor(a, self._pin))
+        return [pack_payload(b, self.packed_transfer, True, self._pin)
                 for b in blocks]
 
     def _copy(self, host: Sequence[Optional[torch.Tensor]],

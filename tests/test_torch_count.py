@@ -14,11 +14,13 @@ from strainscan_tpu.identify.count import count_sample as count_sample_jax
 from strainscan_tpu.index.hashtable import KmerTable
 from strainscan_tpu.kmer import pack
 from strainscan_tpu.ops.count import CountPipeline as JaxPipeline
+from strainscan_tpu_torch import native, timing
 from strainscan_tpu_torch.identify.count import count_sample
 from strainscan_tpu_torch.index.hashtable import fp_table_of
 from strainscan_tpu_torch.kmer import device as tdev
 from strainscan_tpu_torch.ops import probe
-from strainscan_tpu_torch.ops.count import CountPipeline, shape_batch
+from strainscan_tpu_torch.ops.count import (CountPipeline, pack_payload,
+                                            shape_batch)
 
 from _torch_sim import one_torch_thread  # noqa: F401 (autouse fixture)
 from _torch_sim import port_kmer_table
@@ -83,13 +85,34 @@ def test_count_pipeline_equals_jax(case):
     assert ids.sum() > 1000
 
 
-def test_vbytes_and_vlen_forms_both_used():
+@pytest.mark.parametrize("use_native", [True, False])
+def test_vbytes_and_vlen_forms_both_used(monkeypatch, use_native):
+    """Each pack path's payload form and ``pack`` note, with the native
+    one-pass pack and with ``native.get_lib`` giving None (NumPy); both
+    routes ship the same payloads."""
     rng = np.random.default_rng(3)
     genome, table = _genome_table(rng)
     pipe = CountPipeline(fp_table_of(port_kmer_table(table)), CPU)
     clean = _reads(rng, genome, 16, 90, 80)
     dirty = clean.copy()
     dirty[0, 10] = 4
+    cases = [(clean, True, True, "vlen", "vlen/fused", "vlen/prefix"),
+             (dirty, True, True, "vbytes", "vbytes/fused", "vbytes"),
+             (clean, True, False, "vbytes", "vbytes/fused", "vbytes"),
+             (dirty, False, True, "codes", "codes", "codes")]
+    native_payloads = [pack_payload(c, packed, allow, False)
+                       for c, packed, allow, *_ in cases]
+    if not use_native:
+        monkeypatch.setattr(native, "get_lib", lambda: None)
+    for (codes, packed, allow, form, fused, numpy_note), want in zip(
+            cases, native_payloads):
+        with timing.span("count/pack") as s:
+            got = pack_payload(codes, packed, allow, False)
+        assert got[0] == want[0] == form
+        assert s.attrs == {"pack": fused if use_native else numpy_note}
+        assert torch.equal(got[1], want[1])
+        assert (got[2] is None and want[2] is None) or torch.equal(
+            got[2], want[2])
     assert [p[0] for p in pipe.prepare_batch(clean)] == ["vlen"]
     assert [p[0] for p in pipe.prepare_batch(dirty)] == ["vbytes"]
 

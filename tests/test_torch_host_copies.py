@@ -21,6 +21,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from strainscan_tpu import native as jnative
 from strainscan_tpu.build import convert as jconvert
@@ -43,6 +44,7 @@ from strainscan_tpu_torch.identify import low_depth as tlow
 from strainscan_tpu_torch.index import hashtable as tht
 from strainscan_tpu_torch.io import fastx as tfastx
 from strainscan_tpu_torch.kmer import pack as tpack
+from strainscan_tpu_torch.ops.count import pack_payload
 
 from _torch_sim import e2e_fixture, report_tree, write_fq
 
@@ -183,6 +185,83 @@ def test_pack_equals_jax(k):
     rows[3, 10] = 4                     # a mid-read N: no prefix form
     assert tpack.valid_prefix_lens(rows) is None
     assert jpack.valid_prefix_lens(rows) is None
+
+
+PACK_LENGTHS = [1, 15, 16, 17, 31, 32, 33, 80, 100, 150, 160, 256]
+PACK_PATTERNS = ["no_n", "pad_only", "n_at_base_0", "n_mid_read",
+                 "n_at_last_base", "all_invalid_row", "codes_4_and_200",
+                 "no_rows"]
+
+
+def _pack_batch(length, pattern):
+    """9 reads of ``length`` codes (0 for ``no_rows``) with the pattern's
+    invalid codes: full reads for ``no_n`` and ``n_at_last_base``, else
+    reads of every length up to ``length`` padded with code 4."""
+    rng = np.random.default_rng(length * 16 + PACK_PATTERNS.index(pattern))
+    rows = 0 if pattern == "no_rows" else 9
+    codes = rng.integers(0, 4, size=(rows, length)).astype(np.uint8)
+    if pattern == "n_at_last_base":
+        codes[2, -1] = 4
+    if pattern in ("no_n", "n_at_last_base", "no_rows"):
+        return codes
+    ends = rng.integers(0, length + 1, size=rows)
+    ends[:2] = length                       # two full reads
+    pad = 200 if pattern == "codes_4_and_200" else 4
+    for r, end in enumerate(ends):
+        codes[r, end:] = pad if r % 2 else 4
+    if pattern == "n_at_base_0":
+        codes[0, 0] = 4
+    elif pattern == "n_mid_read":
+        codes[1, length // 2] = 4
+    elif pattern == "all_invalid_row":
+        codes[3] = 4
+    elif pattern == "codes_4_and_200":
+        codes[0, length // 3] = 200
+        codes[1, (2 * length) // 3] = 4
+    return codes
+
+
+def _same(got, want):
+    if isinstance(got, torch.Tensor):
+        got = got.numpy()
+        got = got.view(np.uint32) if got.dtype == np.int32 else got
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype
+
+
+@pytest.mark.parametrize("pattern", PACK_PATTERNS)
+@pytest.mark.parametrize("length", PACK_LENGTHS)
+def test_batch_pack_equals_jax(monkeypatch, length, pattern):
+    """The port's one-pass pack (the SIMD groups of 32 codes and the
+    portable tail) and its NumPy fallback give the JAX package's
+    ``bitpack_codes``, ``bitpack_codes_vlen`` and ``valid_prefix_lens``
+    byte for byte, and ``pack_payload`` ships them in the form they
+    allow."""
+    codes = _pack_batch(length, pattern)
+    words, vbytes = jpack.bitpack_codes(codes)
+    fused, vlen = jpack.bitpack_codes_vlen(codes), jpack.valid_prefix_lens(codes)
+    assert (fused is None) == (vlen is None)
+    for use_native in (True, False):
+        if not use_native:
+            monkeypatch.setattr(tnative, "get_lib", lambda: None)
+        for got, want in zip(tpack.bitpack_codes(codes), (words, vbytes)):
+            _same(got, want)
+        got = tpack.bitpack_codes_vlen(codes)
+        if use_native and fused is not None:
+            _same(got[0], fused[0])
+            _same(got[1], fused[1])
+        else:
+            assert got is None
+        got = tpack.valid_prefix_lens(codes)
+        assert (got is None) == (vlen is None)
+        if vlen is not None:
+            _same(got, vlen)
+        for allow_vlen in (True, False):
+            form, a, b = pack_payload(codes, True, allow_vlen, False)
+            assert form == ("vlen" if allow_vlen and vlen is not None
+                            else "vbytes")
+            _same(a, words)
+            _same(b, vlen if form == "vlen" else vbytes)
 
 
 def _same_arrays(a, b, names):

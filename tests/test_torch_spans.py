@@ -127,7 +127,7 @@ def test_one_identify_writes_one_sample_root(plain):
             assert set(s.attrs) == attrs.get(s.name, set()), s.name
     assert set(counts[1].attrs) == {"source", "kept_bytes"}
     assert {s.attrs["pack"] for s in spans if s.name == "count/pack"} <= {
-        "vlen/fused", "vlen/prefix", "vbytes", "codes"}
+        "vlen/fused", "vbytes/fused", "vlen/prefix", "vbytes", "codes"}
     # the Pre-Scan, its dominant search and the Enet, once per voted
     # cluster (one here) inside the L2 vote
     up = {s.name: by_id[s.parent].name for s in spans if s.name in (
